@@ -1,0 +1,597 @@
+"""Hybrid-Systems DDP solver, batched over scenarios (port of the
+production path of `cafempc_tpu/solver/hsddp.py`).
+
+The JAX package builds one per-scenario solve and vmaps it; here every
+function takes the whole batch: per-scenario tensors carry a leading
+dimension B, plan tensors (shared by all scenarios) carry none.  The path
+ported is the one `make_solver(all_shooting=True, trim_output=...,
+parallel_line_search=False, fused_riccati=True, max_resets=R,
+reg_floor=...)` runs:
+
+  * all-shooting rollout with the reset map evaluated only at the gathered
+    reset sites (`max_resets`);
+  * generic LQ approximation from the problem's closed-form partials;
+  * Riccati backward sweep through `ops.sweep` (the hand CUDA kernel on
+    CUDA tensors) inside the regularization retry loop;
+  * linear rollout through `ops.linroll`;
+  * sequential merit line search, DDP inner and AL outer loops.
+
+Loop semantics follow the vmapped JAX program exactly: each `while` runs
+while ANY scenario's condition holds, and a scenario whose condition is
+false keeps its carry unchanged (`tree_where`), iteration counters
+included.  One host sync per loop test.
+"""
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from cafempc_tpu_torch.ops import linroll as linroll_mod
+from cafempc_tpu_torch.ops import sweep as sweep_mod
+from cafempc_tpu_torch.solver import penalty
+from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.solver.plan import KnotPlan, PenaltyParams, StepData
+
+
+class ProblemFns(NamedTuple):
+    """Problem-specific batched functions consumed by the solver.
+
+    Per-step functions take X [B, n, xs], U [B, n, us], Y [B, n, ys] and a
+    StepData slice with leading dim n; per-knot functions take X and a
+    KnotData slice.  Shapes mirror the JAX ProblemFns with [B, n] leading.
+    """
+    dyn: Callable                 # (X, U, sd) -> (Xnext, Y)
+    dyn_partials: Callable        # (X, U, sd) -> (A, B, C, D)
+    reset: Callable               # (X, sd) -> Xnext
+    reset_partial: Callable       # (X, sd) -> Px
+    run_cost: Callable            # (X, U, Y, sd) -> l [B, n] (dt-scaled)
+    run_cost_partials: Callable   # -> (lx, lu, ly, lxx, luu, lux, lyy)
+    term_cost: Callable           # (X, kd) -> phi [B, n]
+    term_cost_partials: Callable  # (X, kd) -> (phix, phixx)
+    path_con: Callable            # (X, U, Y, sd) -> g [B, n, n_pcon]
+    path_con_partials: Callable   # (X, U, Y, sd) -> (gx, gu, gy)
+    term_con: Callable            # (X, kd) -> h [B, n, n_tcon]
+    term_con_partials: Callable   # (X, kd) -> hx [B, n, n_tcon, xs]
+
+
+class TrajState(NamedTuple):
+    """Working trajectory data (reference TrajectoryManagement.h:22-85)."""
+    Xbar: Any; Ubar: Any; Defect_bar: Any
+    X: Any; U: Any; Y: Any; Xsim: Any; Defect: Any
+    dX: Any; dU: Any; K: Any
+    A: Any; B: Any; C: Any; D: Any
+    lx: Any; lu: Any; ly: Any; lxx: Any; luu: Any; lux: Any; lyy: Any
+    phix: Any; phixx: Any
+    G: Any; H: Any
+    Qu: Any; Quu: Any; Qux: Any
+
+
+class SolverInfo(NamedTuple):
+    """Iteration telemetry (MultiPhaseDDP.h:133-136), per scenario."""
+    cost_buf: Any
+    dyn_feas_buf: Any
+    eqn_feas_buf: Any
+    ineq_feas_buf: Any
+    n_entries: Any
+    iters: Any
+    ls_iters: Any
+    reg_iters: Any
+
+
+class SolverState(NamedTuple):
+    traj: TrajState
+    pen: PenaltyParams
+    x0: Any
+    cost: Any; merit: Any; merit_rho: Any; feas: Any
+    dV1: Any; dV2: Any
+    reg: Any
+    max_pconstr: Any; max_tconstr: Any
+    max_pconstr_prev: Any; max_tconstr_prev: Any
+    # penalty-independent cost terms of the accepted nominal, re-folded
+    # under each AL update without re-evaluating the trajectory
+    cost_quad: Any; con_g: Any; con_h: Any
+    success: Any          # False only on unrecoverable backward-sweep failure
+    done: Any             # outer-loop termination flag
+    info: SolverInfo
+
+
+class SolveResult(NamedTuple):
+    """Trimmed solver output: what the MPC command tape consumes plus
+    telemetry."""
+    Xbar: Any; Ubar: Any; K: Any
+    Qu: Any; Quu: Any; Qux: Any
+    cost: Any; feas: Any
+    max_pconstr: Any; max_tconstr: Any
+    success: Any
+    info: SolverInfo
+
+
+def tree_where(mask, new, old):
+    """Per-scenario select over matching trees (NamedTuples / tuples) of
+    [B, ...] tensors: scenario b takes `new` where mask[b], else `old`."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
+                           new, old)
+    vals = [tree_where(mask, a, b) for a, b in zip(new, old)]
+    return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
+
+
+def _any(mask):
+    return bool(mask.any())
+
+
+def init_traj(plan: KnotPlan, xs, us, ys, Xbar0, Ubar0):
+    B, N = Ubar0.shape[0], plan.n_steps
+
+    def z(*shape):
+        return Xbar0.new_zeros((B,) + shape)
+
+    return TrajState(
+        Xbar=Xbar0, Ubar=Ubar0, Defect_bar=z(N + 1, xs),
+        X=Xbar0, U=Ubar0, Y=z(N, ys), Xsim=Xbar0, Defect=z(N + 1, xs),
+        dX=z(N + 1, xs), dU=z(N, us), K=z(N, us, xs),
+        A=z(N, xs, xs), B=z(N, xs, us), C=z(N, ys, xs), D=z(N, ys, us),
+        lx=z(N, xs), lu=z(N, us), ly=z(N, ys),
+        lxx=z(N, xs, xs), luu=z(N, us, us), lux=z(N, us, xs),
+        lyy=z(N, ys, ys),
+        phix=z(N + 1, xs), phixx=z(N + 1, xs, xs),
+        G=z(N + 1, xs), H=z(N + 1, xs, xs),
+        Qu=z(N, us), Quu=z(N, us, us), Qux=z(N, us, xs))
+
+
+class _ResetSites(NamedTuple):
+    """Gathered reset steps of a plan (shared by the whole batch)."""
+    idx: torch.Tensor       # [R] step indices, padded with 0
+    valid: torch.Tensor     # [R] bool, False on padding entries
+    sd: StepData            # the StepData rows at idx
+
+
+def reset_sites(plan: KnotPlan, max_resets):
+    """The first `max_resets` reset steps, as
+    `jnp.nonzero(is_reset > 0, size=max_resets, fill_value=0)` picks them
+    (hsddp.py:446-457): padded with index 0, masked by `valid`."""
+    is_r = plan.step.is_reset
+    idx = torch.nonzero(is_r > 0).flatten()[:max_resets]
+    pad = idx.new_zeros(max_resets - idx.shape[0])
+    idx = torch.cat([idx, pad])
+    return _ResetSites(idx, is_r[idx] > 0,
+                       StepData(*[a[idx] for a in plan.step]))
+
+
+INFO_LEN = 64   # entries of the per-iteration telemetry buffers
+
+
+def _quad(v, M, w):
+    """sum_ij v_i M_ij w_j over trailing axes."""
+    return torch.einsum("...i,...ij,...j->...", v, M, w)
+
+
+def _mv(M, v):
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _per_lane(v):
+    """A per-scenario scalar [B] or vector [B, n] broadcast against a
+    [B, N, n] stack."""
+    return v[:, None, None] if v.dim() == 1 else v[:, None, :]
+
+
+def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
+                reg_floor=0.0, plain_ops=False):
+    """Build ``solve(plan, pen, x0, Xbar0, Ubar0) -> SolveResult`` over a
+    batch (the JAX package's `trim_output=True` output).
+
+    plan: KnotPlan of unbatched tensors; pen: PenaltyParams with a leading
+    scenario dim B; x0 [B, xs]; Xbar0 [B, N+1, xs]; Ubar0 [B, N, us].
+    max_resets: cap on the reset steps the reset map is evaluated at.
+    reg_floor: minimum regularization of every backward sweep attempt
+    (0.0 = the reference schedule, MultiPhaseDDP.cpp:136-165).
+    plain_ops: run the plain PyTorch twins of the sweep and linear-rollout
+    kernels even on CUDA tensors — for comparing a solve against its kernel
+    solve on the card; the default dispatches CUDA tensors to the kernels.
+    """
+    if not (opts.MS and max_resets):
+        raise ValueError("the port runs the all-shooting multiple-shooting "
+                         "configuration with gathered resets (max_resets)")
+    sweep_fn = sweep_mod.sweep_reference if plain_ops else sweep_mod.sweep
+    linroll_fn = (linroll_mod.linroll_reference if plain_ops
+                  else linroll_mod.linroll)
+
+    # ---------------- rollout ----------------------------------------
+    def rollout(plan, sites, tr: TrajState, x0, eps):
+        """All-shooting hybrid rollout at per-scenario step eps [B]
+        (SinglePhase.cpp:182-233 + MultiPhaseDDP.cpp:49-92 flattened)."""
+        sd, kd = plan.step, plan.knot
+        e = eps[:, None, None]
+        X = tr.Xbar + e * tr.dX
+        dx = X[:, :-1] - tr.Xbar[:, :-1]
+        U = tr.Ubar + e * tr.dU + _mv(tr.K, dx)
+        Xn, Y = fns.dyn(X[:, :-1], U, sd)
+        xr = fns.reset(X[:, sites.idx], sites.sd)
+        rows = torch.where(sites.valid[:, None], xr, Xn[:, sites.idx])
+        Xn = Xn.index_copy(1, sites.idx, rows)
+        Xn = torch.where(sd.active[:, None] > 0, Xn, X[:, 1:])
+        Xsim = torch.cat([x0[:, None], Xn], dim=1)
+        ka = kd.active[:, None]
+        Defect = (Xsim - X) * ka
+        ok = torch.isfinite(Xsim).all(dim=(1, 2)) & (
+            torch.sum((Xsim * ka) ** 2, dim=-1).amax(dim=1) < 1e12)
+        return tr._replace(X=X, U=U, Y=Y, Xsim=Xsim, Defect=Defect), ok
+
+    # ---------------- cost -------------------------------------------
+    def cost_terms(plan, tr: TrajState):
+        """Penalty-independent cost pieces: quadratic (tracking+terminal)
+        cost [B] and raw constraint values g [B, N, nc], h [B, N+1, nt]."""
+        sd, kd = plan.step, plan.knot
+        Xs = tr.X[:, :-1]
+        run_mask = sd.active * (1.0 - sd.is_reset)
+        term_mask = kd.active * kd.is_terminal
+        l = fns.run_cost(Xs, tr.U, tr.Y, sd)
+        g = fns.path_con(Xs, tr.U, tr.Y, sd)
+        h = fns.term_con(tr.X, kd)
+        phi = fns.term_cost(tr.X, kd)
+        cq = torch.sum(l * run_mask, 1) + torch.sum(phi * term_mask, 1)
+        return cq, g, h
+
+    def cost_from_terms(plan, pen: PenaltyParams, cq, g, h):
+        """Fold ReB/AL penalties over cached cost terms
+        (SinglePhase.cpp:236-262) + max constraint violations."""
+        sd, kd = plan.step, plan.knot
+        run_mask = sd.active * (1.0 - sd.is_reset)
+        term_mask = kd.active * kd.is_terminal
+        total = cq
+        if opts.ReB_active:
+            reb = penalty.reb_cost(g, pen.reb_delta, pen.reb_eps,
+                                   pen.reb_active)
+            total = total + torch.sum(sd.dt * reb * run_mask, 1)
+        if opts.AL_active:
+            al = penalty.al_cost(h, pen.al_lambda, pen.al_sigma,
+                                 pen.al_active)
+            total = total + torch.sum(al * term_mask, 1)
+        # violations: path g>=0 feasible (max_pconstr <= 0);
+        # terminal |h| (max_tconstr >= 0)
+        g_act = (pen.reb_active > 0) & (run_mask[:, None] > 0)
+        max_p = torch.where(g_act, g, torch.zeros_like(g)).amin(dim=(1, 2))
+        max_p = torch.clamp(max_p, max=0.0)
+        h_act = (pen.al_active > 0) & (term_mask[:, None] > 0)
+        max_t = torch.where(h_act, h.abs(), torch.zeros_like(h)) \
+            .amax(dim=(1, 2))
+        return total, max_p, max_t
+
+    def dyn_feas(Defect):
+        return torch.sqrt(torch.sum(Defect ** 2, dim=(1, 2)))
+
+    # ---------------- LQ approximation -------------------------------
+    def lq_approx(plan, sites, pen, tr: TrajState):
+        """(SinglePhase.cpp:265-320), all knots and scenarios at once."""
+        sd, kd = plan.step, plan.knot
+        Xs = tr.X[:, :-1]
+        A, B, C, D = fns.dyn_partials(Xs, tr.U, sd)
+        P = fns.reset_partial(tr.X[:, sites.idx], sites.sd)
+        vm = sites.valid[:, None, None]
+        A = A.index_copy(1, sites.idx,
+                         torch.where(vm, P, A[:, sites.idx]))
+        B = B.index_copy(1, sites.idx,
+                         torch.where(vm, 0.0, B[:, sites.idx]))
+        act = sd.active[:, None, None]
+        A = A * act
+        B = B * act
+        C = C * ((1.0 - sd.is_reset)[:, None, None] * act)
+        D = D * ((1.0 - sd.is_reset)[:, None, None] * act)
+
+        lx, lu, ly, lxx, luu, lux, lyy = fns.run_cost_partials(
+            Xs, tr.U, tr.Y, sd)
+        if opts.ReB_active:
+            g = fns.path_con(Xs, tr.U, tr.Y, sd)
+            gx, gu, gy = fns.path_con_partials(Xs, tr.U, tr.Y, sd)
+            rb = penalty.reb_partials(g, gx, gu, gy, pen.reb_delta,
+                                      pen.reb_eps, pen.reb_active)
+            dt = sd.dt[:, None]
+            lx = lx + dt * rb[0]
+            lu = lu + dt * rb[1]
+            ly = ly + dt * rb[2]
+            dt = dt[..., None]
+            lxx = lxx + dt * rb[3]
+            luu = luu + dt * rb[4]
+            lyy = lyy + dt * rb[5]
+
+        phix, phixx = fns.term_cost_partials(tr.X, kd)
+        if opts.AL_active:
+            h = fns.term_con(tr.X, kd)
+            hx = fns.term_con_partials(tr.X, kd)
+            ag, ah = penalty.al_partials(h, hx, pen.al_lambda, pen.al_sigma,
+                                         pen.al_active)
+            phix = phix + ag
+            phixx = phixx + ah
+        tmask = (kd.active * kd.is_terminal)[:, None]
+        rmask = (sd.active * (1.0 - sd.is_reset))[:, None]
+        rmask2 = rmask[..., None]
+        return tr._replace(
+            A=A, B=B, C=C, D=D,
+            lx=lx * rmask, lu=lu * rmask, ly=ly * rmask,
+            lxx=lxx * rmask2, luu=luu * rmask2, lux=lux * rmask2,
+            lyy=lyy * rmask2,
+            phix=phix * tmask, phixx=phixx * tmask[..., None])
+
+    # ---------------- backward sweep ----------------------------------
+    def sweep_operands(plan, tr: TrajState):
+        """Sweep-kernel operands, invariant across the regularization
+        retries: the output-equation terms folded into the cost
+        expansions, and the mutually exclusive cost streams merged
+        (transform steps read phix/phixx, dynamics steps lx/lxx)."""
+        sd = plan.step
+        lx, lu, lxx, luu, lux = tr.lx, tr.lu, tr.lxx, tr.luu, tr.lux
+        if tr.ly.shape[-1]:
+            lx = lx + torch.einsum("bkij,bki->bkj", tr.C, tr.ly)
+            lu = lu + torch.einsum("bkij,bki->bkj", tr.D, tr.ly)
+            lxx = lxx + torch.einsum("bkji,bkjl,bklm->bkim",
+                                     tr.C, tr.lyy, tr.C)
+            luu = luu + torch.einsum("bkji,bkjl,bklm->bkim",
+                                     tr.D, tr.lyy, tr.D)
+            lux = lux + torch.einsum("bkji,bkjl,bklm->bkim",
+                                     tr.D, tr.lyy, tr.C)
+        wb = (sd.is_reset > 0) | (sd.active == 0)
+        lx_m = torch.where(wb[:, None], tr.phix[:, :-1], lx)
+        lxx_m = torch.where(wb[:, None, None], tr.phixx[:, :-1], lxx)
+        return (tr.A.contiguous(), tr.B.contiguous(), lx_m.contiguous(),
+                lu.contiguous(), lxx_m.contiguous(), luu.contiguous(),
+                lux.contiguous(), tr.phix[:, -1].contiguous(),
+                tr.phixx[:, -1].contiguous(), tr.Defect.contiguous(),
+                wb.to(torch.int32))
+
+    def backward_sweep(tr: TrajState, ops, reg):
+        """One sweep at per-scenario reg [B]; returns the sweep outputs
+        (G, H, K, dU, Qu, Quu, Qux) and dV1, dV2, ok [B]."""
+        G_s, H_s, K, dU, Qu, Quu, Qux, ok_f, dv = sweep_fn(*ops, reg)
+        G = torch.cat([G_s, tr.phix[:, -1:]], dim=1)
+        H = torch.cat([H_s, tr.phixx[:, -1:]], dim=1)
+        # value gradient defect correction at the initial knot
+        # (SinglePhase.cpp:389)
+        G[:, 0] = G[:, 0] + _mv(H[:, 0], tr.Defect[:, 0])
+        ok = (ok_f > 0.5) & torch.isfinite(H).all(dim=(1, 2, 3))
+        return (G, H, K, dU, Qu, Quu, Qux), dv[:, 0], dv[:, 1], ok
+
+    def backward_sweep_regularized(plan, tr, reg0, alive):
+        """Regularization retry loop (MultiPhaseDDP.cpp:136-165)."""
+        ops = sweep_operands(plan, tr)
+        if reg_floor:
+            reg0 = torch.clamp(reg0, min=reg_floor)
+        zero = torch.zeros_like(reg0)
+        c = ((tr.G, tr.H, tr.K, tr.dU, tr.Qu, tr.Quu, tr.Qux), reg0,
+             torch.zeros_like(alive), zero, zero,
+             torch.zeros_like(alive, dtype=torch.int32))
+
+        def cond(c):
+            _, reg, ok, _, _, it = c
+            return alive & (~ok) & (reg <= opts.reg_max) & (it < 32)
+
+        active = cond(c)
+        while _any(active):
+            outs, reg, _, _, _, it = c
+            outs2, dV1, dV2, ok2 = backward_sweep(tr, ops, reg)
+            reg2 = torch.where(
+                ok2, reg, torch.clamp(reg * opts.update_regularization,
+                                      min=opts.reg_min_init))
+            c = tree_where(active, (outs2, reg2, ok2, dV1, dV2, it + 1), c)
+            active = cond(c)
+        outs, reg, ok, dV1, dV2, n_it = c
+        tr = tr._replace(G=outs[0], H=outs[1], K=outs[2], dU=outs[3],
+                         Qu=outs[4], Quu=outs[5], Qux=outs[6])
+        reg = reg / 20.0
+        reg = torch.where(reg < 1e-6, torch.zeros_like(reg), reg)
+        return tr, reg, ok, dV1, dV2, n_it
+
+    # ---------------- linear rollout ----------------------------------
+    def _lin_dV(plan, tr: TrajState, dX, eps):
+        """Expected cost change along the search direction
+        (SinglePhase.cpp:160-175)."""
+        sd = plan.step
+        w1 = 1.0 - ((sd.is_reset > 0) | (sd.active == 0)).to(dX.dtype)
+        dxk = dX[:, :-1]
+        duk = eps * tr.dU + _mv(tr.K, dxk)
+        dV1_dyn = torch.sum(w1 * (torch.sum(tr.lx * dxk, -1)
+                                  + torch.sum(tr.lu * duk, -1)), 1)
+        dV2_dyn = torch.sum(w1 * (_quad(dxk, tr.lxx, dxk)
+                                  + _quad(duk, tr.luu, duk)
+                                  + _quad(duk, tr.lux, dxk)), 1)
+        dV1_tr = torch.sum(tr.phix * dX, dim=(1, 2))
+        dV2_tr = torch.sum(_quad(dX, tr.phixx, dX), 1)
+        return dV1_dyn + dV1_tr, dV2_dyn + dV2_tr
+
+    def linear_rollout(plan, tr: TrajState, eps):
+        """Search direction dx_{k+1} = M_k dx_k + c_k through the linroll
+        kernel (SinglePhase.cpp:145-178 + MultiPhaseDDP.cpp:12-42)."""
+        sd = plan.step
+        w = ((sd.is_reset > 0) | (sd.active == 0))[:, None, None]
+        M = torch.where(w, tr.A, tr.A + tr.B @ tr.K)
+        Bdu = _mv(tr.B, eps * tr.dU)
+        c = torch.where(w[..., 0], torch.zeros_like(Bdu), Bdu) \
+            + eps * tr.Defect[:, 1:]
+        dx0 = eps * tr.Defect[:, 0]
+        dX_tail = linroll_fn(M.contiguous(), c.contiguous(),
+                             dx0.contiguous())
+        dX = torch.cat([dx0[:, None], dX_tail], dim=1)
+        dV1, dV2 = _lin_dV(plan, tr, dX, eps)
+        return tr._replace(dX=dX), dV1, dV2
+
+    # ---------------- line search -------------------------------------
+    def line_search(plan, sites, pen, tr, x0, merit0, feas0, rho, dV1, dV2,
+                    cost0, terms_nom, alive):
+        """Sequential backtracking (MultiPhaseDDP.cpp:95-133) with a
+        per-scenario step eps."""
+        roll0 = (tr.X, tr.U, tr.Y, tr.Xsim, tr.Defect)
+        c = (roll0, terms_nom, torch.ones_like(cost0),
+             torch.zeros_like(alive, dtype=torch.int32),
+             torch.zeros_like(alive), cost0, feas0, merit0)
+
+        def cond(c):
+            _, _, eps, _, success, _, _, _ = c
+            return alive & (~success) & (eps > opts.ls_eps_min)
+
+        active = cond(c)
+        while _any(active):
+            _, _, eps, it, _, _, _, _ = c
+            tr2, ok = rollout(plan, sites, tr, x0, eps)
+            cq2, g2, h2 = cost_terms(plan, tr2)
+            cost2, _, _ = cost_from_terms(plan, pen, cq2, g2, h2)
+            feas2 = dyn_feas(tr2.Defect)
+            merit2 = cost2 + rho * feas2
+            exp_cost = eps * dV1 + 0.5 * eps * eps * dV2
+            exp_merit = exp_cost - eps * rho * feas0
+            succ = (merit2 <= merit0 + opts.gamma * exp_merit) & ok
+            eps2 = torch.where(succ, eps, eps * opts.alpha)
+            roll2 = (tr2.X, tr2.U, tr2.Y, tr2.Xsim, tr2.Defect)
+            c = tree_where(active, (roll2, (cq2, g2, h2), eps2, it + 1, succ,
+                                    cost2, feas2, merit2), c)
+            active = cond(c)
+        roll, terms, _, n_it, success, cost, feas, merit = c
+        tr = tr._replace(X=roll[0], U=roll[1], Y=roll[2], Xsim=roll[3],
+                         Defect=roll[4])
+        return tr, terms, success, cost, feas, merit, n_it
+
+    # ---------------- solve -------------------------------------------
+    def update_nominal(tr: TrajState):
+        return tr._replace(Xbar=tr.X, Ubar=tr.U, Defect_bar=tr.Defect)
+
+    def push_info(info: SolverInfo, cost, feas, maxt, maxp):
+        i = torch.clamp(info.n_entries, max=INFO_LEN - 1).long()[:, None]
+
+        def put(buf, v):
+            return buf.scatter(1, i, v[:, None])
+
+        return info._replace(
+            cost_buf=put(info.cost_buf, cost),
+            dyn_feas_buf=put(info.dyn_feas_buf, feas),
+            eqn_feas_buf=put(info.eqn_feas_buf, maxt),
+            ineq_feas_buf=put(info.ineq_feas_buf, maxp),
+            n_entries=info.n_entries + 1)
+
+    def ddp_inner(plan, sites, s: SolverState, alive):
+        """One inner DDP iteration (MultiPhaseDDP.cpp:277-387) for the
+        scenarios in `alive` (the others' results are discarded by the
+        caller, so their inner loops need not run)."""
+        tr = s.traj
+        cost, maxp, maxt = cost_from_terms(plan, s.pen, s.cost_quad,
+                                           s.con_g, s.con_h)
+        feas = dyn_feas(tr.Defect)
+        tr = lq_approx(plan, sites, s.pen, tr)
+        tr, reg, ok, dV1, dV2, reg_it = backward_sweep_regularized(
+            plan, tr, s.reg, alive)
+        tr, dV1, dV2 = linear_rollout(plan, tr, 1.0)
+        dV_abs = torch.abs(dV1 + 0.5 * dV2)
+        rho = torch.where(
+            feas > opts.dynamics_feas_thresh,
+            dV_abs / ((1.0 - opts.merit_scale) * feas) + opts.merit_offset,
+            torch.zeros_like(feas))
+        merit = cost + rho * feas
+        early = (dV_abs < opts.cost_thresh) & \
+                (feas <= opts.dynamics_feas_thresh)
+        terms_nom = (s.cost_quad, s.con_g, s.con_h)
+        # the reference skips the line search on early termination
+        # (MultiPhaseDDP.cpp:330-345); its results would be discarded
+        tr2, terms2, ls_ok, cost2, feas2, merit2, ls_it = line_search(
+            plan, sites, s.pen, tr, s.x0, merit, feas, rho, dV1, dV2, cost,
+            terms_nom, alive & ~early)
+        ls_ok = ls_ok & (~early)
+        tr2 = tree_where(ls_ok, update_nominal(tr2), tr2)
+        tr2 = tree_where(early, tr, tr2)
+        cost3 = torch.where(ls_ok, cost2, cost)
+        merit3 = torch.where(ls_ok, merit2, merit)
+        feas3 = torch.where(ls_ok, feas2, feas)
+        terms3 = tree_where(ls_ok, terms2, terms_nom)
+        # late termination (MultiPhaseDDP.cpp:369-370)
+        denom = torch.where(cost == 0, torch.ones_like(cost), cost)
+        late = (torch.abs((cost - cost3) / denom) < opts.cost_thresh) & \
+               (feas3 <= opts.dynamics_feas_thresh)
+        inner_done = early | late
+        info = s.info._replace(
+            reg_iters=s.info.reg_iters + reg_it, iters=s.info.iters + 1,
+            ls_iters=s.info.ls_iters + torch.where(
+                early, torch.zeros_like(ls_it), ls_it))
+        info = push_info(info, cost3, feas3, maxt, maxp)
+        return s._replace(
+            traj=tr2, cost=cost3, merit=merit3, merit_rho=rho, feas=feas3,
+            dV1=dV1, dV2=dV2, reg=reg, max_pconstr=maxp, max_tconstr=maxt,
+            cost_quad=terms3[0], con_g=terms3[1], con_h=terms3[2],
+            success=s.success & ok, info=info), inner_done | (~ok)
+
+    def outer_body(plan, sites, s: SolverState, alive):
+        """One AL outer iteration (MultiPhaseDDP.cpp:264-427)."""
+        s = s._replace(max_pconstr_prev=s.max_pconstr,
+                       max_tconstr_prev=s.max_tconstr,
+                       reg=torch.zeros_like(s.cost))
+        it = torch.zeros_like(alive, dtype=torch.int32)
+        done = torch.zeros_like(alive)
+        active = alive & (it < opts.max_DDP_iter)
+        while _any(active):
+            s2, done2 = ddp_inner(plan, sites, s, active)
+            s = tree_where(active, s2, s)
+            done = torch.where(active, done2, done)
+            it = it + active.to(torch.int32)
+            active = alive & (it < opts.max_DDP_iter) & ~done
+
+        # convergence checks (MultiPhaseDDP.cpp:394-405)
+        feas_ok = s.feas <= opts.dynamics_feas_thresh
+        conv = (s.max_tconstr < opts.tconstr_thresh) & \
+               (torch.abs(s.max_pconstr) < opts.pconstr_thresh) & feas_ok
+        stall = (torch.abs(s.max_tconstr - s.max_tconstr_prev) < 1e-4) & \
+                (torch.abs(s.max_pconstr - s.max_pconstr_prev) < 1e-4) & \
+                feas_ok
+        done = conv | stall | (~s.success)
+
+        # AL / ReB parameter updates on the cached nominal constraint values
+        pen = s.pen
+        if opts.AL_active:
+            lam, sig = penalty.al_update_params(
+                s.con_h, pen.al_lambda, pen.al_sigma, pen.al_active,
+                opts.tconstr_thresh, opts.update_penalty,
+                _per_lane(pen.al_sigma_max))
+            pen = pen._replace(al_lambda=lam, al_sigma=sig)
+        if opts.ReB_active:
+            dl, ew = penalty.reb_update_params(
+                s.con_g, pen.reb_delta, pen.reb_eps, pen.reb_active,
+                opts.pconstr_thresh, opts.update_relax, opts.update_ReB,
+                _per_lane(pen.reb_delta_min))
+            pen = pen._replace(reb_delta=dl, reb_eps=ew)
+        return s._replace(pen=pen, done=done)
+
+    def solve(plan: KnotPlan, pen0: PenaltyParams, x0, Xbar0, Ubar0):
+        Bsz, xs = x0.shape
+        us = Ubar0.shape[-1]
+        ys = plan.step.y_ref.shape[-1]
+        sites = reset_sites(plan, max_resets)
+        tr = init_traj(plan, xs, us, ys, Xbar0, Ubar0)
+        zero = x0.new_zeros(Bsz)
+        izero = torch.zeros(Bsz, dtype=torch.int32, device=x0.device)
+        buf = x0.new_zeros(Bsz, INFO_LEN)
+        info = SolverInfo(cost_buf=buf, dyn_feas_buf=buf, eqn_feas_buf=buf,
+                          ineq_feas_buf=buf, n_entries=izero, iters=izero,
+                          ls_iters=izero, reg_iters=izero)
+        # initial rollout + nominal update (MultiPhaseDDP.cpp:238-261)
+        tr, _ = rollout(plan, sites, tr, x0, zero)
+        tr = update_nominal(tr)
+        cq, g, h = cost_terms(plan, tr)
+        cost, maxp, maxt = cost_from_terms(plan, pen0, cq, g, h)
+        feas = dyn_feas(tr.Defect)
+        s = SolverState(
+            traj=tr, pen=pen0, x0=x0, cost=cost, merit=zero, merit_rho=zero,
+            feas=feas, dV1=zero, dV2=zero, reg=zero,
+            max_pconstr=maxp, max_tconstr=maxt,
+            max_pconstr_prev=zero, max_tconstr_prev=zero,
+            cost_quad=cq, con_g=g, con_h=h,
+            success=torch.ones_like(izero, dtype=torch.bool),
+            done=torch.zeros_like(izero, dtype=torch.bool),
+            info=push_info(info, cost, feas, maxt, maxp))
+
+        it = izero
+        active = it < opts.max_AL_iter
+        while _any(active):
+            s = tree_where(active, outer_body(plan, sites, s, active), s)
+            it = it + active.to(torch.int32)
+            active = (it < opts.max_AL_iter) & ~s.done
+        t = s.traj
+        return SolveResult(
+            Xbar=t.Xbar, Ubar=t.Ubar, K=t.K, Qu=t.Qu, Quu=t.Quu, Qux=t.Qux,
+            cost=s.cost, feas=s.feas, max_pconstr=s.max_pconstr,
+            max_tconstr=s.max_tconstr, success=s.success, info=s.info)
+
+    return solve

@@ -35,6 +35,8 @@ def pytest_configure(config):
         "xslow: cross-variant solver-equivalence proofs that each compile "
         "an extra full WB solver program on CPU (skipped unless "
         "CAFEMPC_RUN_XSLOW=1)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skipped without one)")
 
 
 def pytest_collection_modifyitems(config, items):

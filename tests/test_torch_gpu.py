@@ -1,0 +1,120 @@
+"""The CUDA kernels on the card: each against its plain twin, and a small
+HKD solve through the kernels against the same solve through the twins.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no jax, so it runs on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.ops import linroll as lr
+from cafempc_tpu_torch.ops import sweep as sw
+from cafempc_tpu_torch.parallel.mesh import broadcast_batch
+from cafempc_tpu_torch.problems import hkd_problem as hp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.solver.hsddp import make_solver
+from cafempc_tpu_torch.solver.options import SolverOptions
+from torch_port_inputs import make_inputs
+
+# (dtype, tolerance on the error normalized by the twin's max |value|):
+# float32 sums in another order than the twin's batched matmuls
+DTYPES = [(torch.float32, 1e-4), (torch.float64, 1e-10)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_sweep_kernel_matches_twin(cuda, dtype, tol):
+    d = make_inputs(np.random.default_rng(13), 8, 16, 24, 24, w_idx=(3, 7),
+                    luu_shift=1.0, fail=(5,))
+    t = [torch.as_tensor(d[k], device=cuda, dtype=dtype) for k in (
+        "A", "Bm", "lx", "lu", "lxx", "luu", "lux", "phix_T", "phixx_T",
+        "defect")]
+    w = torch.as_tensor(d["w"], device=cuda)
+    reg = torch.as_tensor(d["reg"], device=cuda, dtype=dtype)
+    before = sw.sweep.launches
+    got = sw.sweep(*t, w, reg)
+    want = sw.sweep_reference(*t, w, reg)
+    torch.cuda.synchronize()
+    assert sw.sweep.launches == before + 1
+    ok = want[7] > 0.5
+    assert ok.tolist() == [b != 5 for b in range(8)]
+    assert torch.equal(got[7] > 0.5, ok)
+    for i in (0, 1, 2, 3, 4, 5, 6, 8):  # G, H, K, dU, Qu, Quu, Qux, dv
+        assert _rel_err(got[i][ok], want[i][ok]) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_linroll_kernel_matches_twin(cuda, dtype, tol):
+    rng = np.random.default_rng(23)
+    M, c, dx0 = (torch.as_tensor(a, device=cuda, dtype=dtype) for a in (
+        rng.normal(size=(8, 40, 24, 24)) * 0.16,
+        rng.normal(size=(8, 40, 24)) * 0.1, rng.normal(size=(8, 24))))
+    before = lr.linroll.launches
+    got = lr.linroll(M, c, dx0)
+    want = lr.linroll_reference(M, c, dx0)
+    torch.cuda.synchronize()
+    assert lr.linroll.launches == before + 1
+    assert _rel_err(got, want) < tol
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_other_dtypes(cuda):
+    m = torch.zeros(2, 3, 4, 4, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        lr.linroll(m, torch.zeros(2, 3, 4, device=cuda, dtype=m.dtype),
+                   torch.zeros(2, 4, device=cuda, dtype=m.dtype))
+
+
+@pytest.mark.gpu
+def test_solve_through_kernels_matches_twins(cuda):
+    """A B=4 f64 solve of a 0.3 s plan: kernels against twins, same
+    iteration counts, trajectories to 1e-8."""
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
+        qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40))
+    f64 = torch.float64
+    body = torch.zeros(12, dtype=f64)
+    body[5] = 0.2486
+    qd = hkd.compute_hkd_state(
+        body[0:3], body[3:6], torch.tensor([0.0, -0.8, 1.6] * 4, dtype=f64),
+        torch.tensor(meta["phases"][0][3], dtype=f64))
+    x0 = torch.cat([body, qd])[None] + 0.01 * torch.as_tensor(
+        np.random.default_rng(7).normal(size=(4, 24)))
+    plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
+                                         cuda, f64)
+    args = (plan, broadcast_batch(pen, 4), x0.to(cuda),
+            broadcast_batch(Xbar0, 4), broadcast_batch(Ubar0, 4))
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
+    kw = dict(max_resets=16, reg_floor=1e-3)
+    before = (sw.sweep.launches, lr.linroll.launches)
+    got = make_solver(hp.make_hkd_fns(), opts, **kw)(*args)
+    torch.cuda.synchronize()
+    assert sw.sweep.launches > before[0]
+    assert lr.linroll.launches > before[1]
+    want = make_solver(hp.make_hkd_fns(), opts, plain_ops=True, **kw)(*args)
+    assert bool(got.success.all())
+    for f in ("iters", "ls_iters", "reg_iters"):
+        assert torch.equal(getattr(got.info, f), getattr(want.info, f))
+    for f in ("Xbar", "Ubar"):
+        assert float((getattr(got, f) - getattr(want, f)).abs().max()) < 1e-8
+    assert float(((got.cost - want.cost) / want.cost).abs().max()) < 1e-10

@@ -1,0 +1,115 @@
+"""No silent fallback: the kernels' wrappers take the plain twins only for
+CPU tensors; anything else launches a kernel or raises, and a machine
+without CUDA refuses the solver's CUDA path and the chip smoke run."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.ops import _ext
+from cafempc_tpu_torch.ops import linroll as lr
+from cafempc_tpu_torch.ops import sweep as sw
+from cafempc_tpu_torch.parallel.mesh import make_batched_solver
+from cafempc_tpu_torch.problems import hkd_problem as hp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.solver.options import SolverOptions
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _sweep_args(device):
+    Bsz, N, xs, us = 2, 3, 4, 2
+    f = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(Bsz, N, xs, xs, **f), torch.zeros(Bsz, N, xs, us, **f),
+            torch.zeros(Bsz, N, xs, **f), torch.zeros(Bsz, N, us, **f),
+            torch.zeros(Bsz, N, xs, xs, **f), torch.zeros(Bsz, N, us, us, **f),
+            torch.zeros(Bsz, N, us, xs, **f), torch.zeros(Bsz, xs, **f),
+            torch.zeros(Bsz, xs, xs, **f), torch.zeros(Bsz, N + 1, xs, **f),
+            torch.zeros(N, dtype=torch.int32, device=device),
+            torch.zeros(Bsz, **f))
+
+
+def test_cuda_solve_refused_without_cuda():
+    """Asking for the solver's CUDA path on a machine without CUDA raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    plan_np, pen_np, _, _, _ = hp.build_hkd_plan(
+        qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40))
+    with pytest.raises((RuntimeError, AssertionError)):
+        from_numpy((plan_np, pen_np), "cuda", torch.float32)
+
+
+@pytest.mark.parametrize("op", ["sweep", "linroll"])
+def test_wrappers_raise_for_non_cpu_devices_without_kernel(op):
+    """A tensor on a device that is neither CPU nor CUDA never reaches the
+    plain twin."""
+    if op == "sweep":
+        with pytest.raises(ValueError, match="no kernel"):
+            sw.sweep(*_sweep_args("meta"))
+    else:
+        m = torch.zeros(2, 3, 4, 4, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            lr.linroll(m, torch.zeros(2, 3, 4, device="meta"),
+                       torch.zeros(2, 4, device="meta"))
+
+
+def test_cpu_tensors_run_the_twin_and_count_no_launch():
+    before = (sw.sweep.launches, lr.linroll.launches)
+    out = sw.sweep(*_sweep_args("cpu"))
+    assert out[0].shape == (2, 3, 4)
+    lr.linroll(torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4),
+               torch.zeros(2, 4))
+    assert (sw.sweep.launches, lr.linroll.launches) == before
+
+
+def test_wrapper_rejects_bad_shapes():
+    args = list(_sweep_args("cpu"))
+    args[10] = args[10].to(torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        sw.sweep(*args)
+    with pytest.raises(ValueError, match="shape"):
+        lr.linroll(torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 5),
+                   torch.zeros(2, 4))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _ext.nvcc_path()
+
+
+def test_unported_variants_raise():
+    fns = hp.make_hkd_fns()
+    with pytest.raises(NotImplementedError):
+        make_batched_solver(fns, SolverOptions(), parallel_line_search=True)
+    with pytest.raises(NotImplementedError):
+        make_batched_solver(fns, SolverOptions(), fused_riccati=False)
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a CUDA device the chip smoke run exits non-zero and prints
+    no result; alone in a directory it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    for cwd, script in ((ROOT, "chip_smoke.py"),
+                        (str(tmp_path), "chip_smoke.py")):
+        if cwd != ROOT:
+            with open(os.path.join(ROOT, script)) as src, \
+                    open(tmp_path / script, "w") as dst:
+                dst.write(src.read())
+        env = dict(os.environ, PYTHONPATH="")
+        proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,69 @@
+"""Importing the port never loads jax, nor any module of the JAX package
+`cafempc_tpu` (the GPU machine has no jax)."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+MODULES = [
+    "cafempc_tpu_torch",
+    "cafempc_tpu_torch.convert",
+    "cafempc_tpu_torch.utils.rotations",
+    "cafempc_tpu_torch.solver.options",
+    "cafempc_tpu_torch.solver.plan",
+    "cafempc_tpu_torch.solver.penalty",
+    "cafempc_tpu_torch.solver.hsddp",
+    "cafempc_tpu_torch.models.hkd",
+    "cafempc_tpu_torch.reference.gait",
+    "cafempc_tpu_torch.reference.quad_reference",
+    "cafempc_tpu_torch.reference.synthetic",
+    "cafempc_tpu_torch.problems.hkd_problem",
+    "cafempc_tpu_torch.ops._ext",
+    "cafempc_tpu_torch.ops.sweep",
+    "cafempc_tpu_torch.ops.linroll",
+    "cafempc_tpu_torch.parallel.mesh",
+    "cafempc_tpu_torch.runtime.warm_start",
+    "cafempc_tpu_torch.runtime.mpc",
+]
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# prints, after an import: <module> <jax loaded> <JAX package loaded>
+_REPORT = ("print({m!r}, 'jax' in sys.modules, "
+           "any(k.split('.')[0] == 'cafempc_tpu' for k in sys.modules))\n")
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+
+
+@pytest.fixture(scope="module")
+def loaded_after():
+    """In one fresh interpreter, import the modules in order and record
+    after each whether jax and the JAX package have been loaded."""
+    code = "import sys, importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" + _REPORT.format(m=m)
+        for m in MODULES)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    return {m: (j, p) for m, j, p in
+            (line.split() for line in proc.stdout.splitlines())}
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_jax_out(loaded_after, module):
+    assert loaded_after[module][0] == "False"
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_jax_package_out(loaded_after, module):
+    assert loaded_after[module][1] == "False"
+
+
+def test_chip_smoke_imports_leave_jax_out():
+    proc = _run("import sys, chip_smoke\n"
+                + _REPORT.format(m="chip_smoke"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[1:] == ["False", "False"]
