@@ -10,11 +10,14 @@ reg_floor=...)` runs:
 
   * all-shooting rollout with the reset map evaluated only at the gathered
     reset sites (`max_resets`);
-  * generic LQ approximation from the problem's closed-form partials;
+  * generic LQ approximation from the problem's closed-form partials, or
+    a problem's fused LQ hook (`fused_lq`);
   * Riccati backward sweep through `ops.sweep` (the hand CUDA kernel on
     CUDA tensors) inside the regularization retry loop;
   * linear rollout through `ops.linroll`;
-  * sequential merit line search, DDP inner and AL outer loops.
+  * sequential merit line search, DDP inner and AL outer loops; a
+    problem's fused trial hook (`fused_forward`) replaces the rollout and
+    cost stages of the line search and of the initial rollout.
 
 Loop semantics follow the vmapped JAX program exactly: each `while` runs
 while ANY scenario's condition holds, and a scenario whose condition is
@@ -176,7 +179,8 @@ def _per_lane(v):
 
 
 def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
-                reg_floor=0.0, plain_ops=False):
+                reg_floor=0.0, plain_ops=False, fused_forward=None,
+                fused_lq=None):
     """Build ``solve(plan, pen, x0, Xbar0, Ubar0) -> SolveResult`` over a
     batch (the JAX package's `trim_output=True` output).
 
@@ -185,9 +189,22 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
     max_resets: cap on the reset steps the reset map is evaluated at.
     reg_floor: minimum regularization of every backward sweep attempt
     (0.0 = the reference schedule, MultiPhaseDDP.cpp:136-165).
-    plain_ops: run the plain PyTorch twins of the sweep and linear-rollout
-    kernels even on CUDA tensors — for comparing a solve against its kernel
-    solve on the card; the default dispatches CUDA tensors to the kernels.
+    plain_ops: run the plain PyTorch twins of every kernel (the sweep, the
+    linear rollout, and those of the fused hooks) even on CUDA tensors —
+    for comparing a solve against its kernel solve on the card; the
+    default dispatches CUDA tensors to the kernels.
+    fused_forward: optional problem-specific fused trial
+    ``f(plan, pen, tr, x0, eps, plain_ops) -> (tr2, (cq, g, h), cost,
+    feas, maxp, maxt, ok)`` with eps [B], replacing rollout + cost_terms +
+    cost_from_terms + dyn_feas in the line search and the initial rollout
+    (e.g. problems/hkd_fused.make_hkd_fused_forward).  It applies the
+    reset map at every reset step, where the generic rollout applies it at
+    the first `max_resets` only: the two agree on plans with at most
+    `max_resets` resets.
+    fused_lq: optional problem-specific fused LQ approximation
+    ``f(plan, pen, tr, plain_ops) -> tr`` replacing lq_approx (e.g.
+    problems/hkd_fused.make_hkd_fused_lq); it sets the fields lq_approx
+    sets, or leaves them zero.
     """
     if not (opts.MS and max_resets):
         raise ValueError("the port runs the all-shooting multiple-shooting "
@@ -259,6 +276,17 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
 
     def dyn_feas(Defect):
         return torch.sqrt(torch.sum(Defect ** 2, dim=(1, 2)))
+
+    def forward(plan, sites, pen, tr, x0, eps):
+        """One trial at per-scenario step eps [B]: the fused trial hook, or
+        rollout + cost terms + penalty folding.  Returns (tr2, (cq, g, h),
+        cost, feas, maxp, maxt, ok)."""
+        if fused_forward is not None:
+            return fused_forward(plan, pen, tr, x0, eps, plain_ops=plain_ops)
+        tr2, ok = rollout(plan, sites, tr, x0, eps)
+        cq, g, h = cost_terms(plan, tr2)
+        cost, maxp, maxt = cost_from_terms(plan, pen, cq, g, h)
+        return tr2, (cq, g, h), cost, dyn_feas(tr2.Defect), maxp, maxt, ok
 
     # ---------------- LQ approximation -------------------------------
     def lq_approx(plan, sites, pen, tr: TrajState):
@@ -430,10 +458,8 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         active = cond(c)
         while _any(active):
             _, _, eps, it, _, _, _, _ = c
-            tr2, ok = rollout(plan, sites, tr, x0, eps)
-            cq2, g2, h2 = cost_terms(plan, tr2)
-            cost2, _, _ = cost_from_terms(plan, pen, cq2, g2, h2)
-            feas2 = dyn_feas(tr2.Defect)
+            tr2, (cq2, g2, h2), cost2, feas2, _, _, ok = forward(
+                plan, sites, pen, tr, x0, eps)
             merit2 = cost2 + rho * feas2
             exp_cost = eps * dV1 + 0.5 * eps * eps * dV2
             exp_merit = exp_cost - eps * rho * feas0
@@ -473,7 +499,10 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         cost, maxp, maxt = cost_from_terms(plan, s.pen, s.cost_quad,
                                            s.con_g, s.con_h)
         feas = dyn_feas(tr.Defect)
-        tr = lq_approx(plan, sites, s.pen, tr)
+        if fused_lq is not None:
+            tr = fused_lq(plan, s.pen, tr, plain_ops=plain_ops)
+        else:
+            tr = lq_approx(plan, sites, s.pen, tr)
         tr, reg, ok, dV1, dV2, reg_it = backward_sweep_regularized(
             plan, tr, s.reg, alive)
         tr, dV1, dV2 = linear_rollout(plan, tr, 1.0)
@@ -558,7 +587,9 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         Bsz, xs = x0.shape
         us = Ubar0.shape[-1]
         ys = plan.step.y_ref.shape[-1]
-        sites = reset_sites(plan, max_resets)
+        # the gathered reset sites of the generic rollout and LQ stages
+        sites = (reset_sites(plan, max_resets)
+                 if fused_forward is None or fused_lq is None else None)
         tr = init_traj(plan, xs, us, ys, Xbar0, Ubar0)
         zero = x0.new_zeros(Bsz)
         izero = torch.zeros(Bsz, dtype=torch.int32, device=x0.device)
@@ -567,11 +598,9 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
                           ineq_feas_buf=buf, n_entries=izero, iters=izero,
                           ls_iters=izero, reg_iters=izero)
         # initial rollout + nominal update (MultiPhaseDDP.cpp:238-261)
-        tr, _ = rollout(plan, sites, tr, x0, zero)
+        tr, (cq, g, h), cost, feas, maxp, maxt, _ = forward(
+            plan, sites, pen0, tr, x0, zero)
         tr = update_nominal(tr)
-        cq, g, h = cost_terms(plan, tr)
-        cost, maxp, maxt = cost_from_terms(plan, pen0, cq, g, h)
-        feas = dyn_feas(tr.Defect)
         s = SolverState(
             traj=tr, pen=pen0, x0=x0, cost=cost, merit=zero, merit_rho=zero,
             feas=feas, dV1=zero, dV2=zero, reg=zero,

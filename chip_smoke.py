@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 Phases (one line of output each, unless noted):
-  1. build the CUDA kernels (`cafempc_tpu_torch/ops/csrc/*.cu`) with nvcc
-     for sm_90a from this checkout and print the build seconds;
+  1. build the four CUDA kernels (`cafempc_tpu_torch/ops/csrc/*.cu`) with
+     nvcc for sm_90a from this checkout, one nvcc per source in parallel,
+     and print the build seconds;
   2. each kernel against its plain PyTorch twin on the card, f32 and f64,
-     at the main path's shapes (B=256, N=112, xs=us=24), with transform
-     steps and scenarios that fail the PSD check;
-  3. the HKD-MPC bench configuration at full width: synthetic bound
-     reference, 1.0 s plan (112 steps), B=256 perturbed initial states,
-     f32, 2 AL x 1 DDP, sequential line search, reg floor 1e-3, gathered
-     resets, the sweep and linroll kernels; one warm-up solve then timed
-     solves (CUDA events + a host fetch of cost and success);
-  4. the same solve with the plain twins, and the difference between the
-     two solves;
+     at the main path's shapes (B=256, N=112, xs=us=24): the sweep with
+     transform steps and scenarios that fail the PSD check, the linear
+     rollout, and the fused HKD LQ and trial kernels on the bench plan's
+     operands perturbed from the seed (reset and padding steps, both
+     branches of the relaxed barrier, per-scenario eps, scenarios blown up
+     so that their trial is not ok);
+  3. the HKD-MPC bench default at full width: synthetic bound reference,
+     1.0 s plan (112 steps), B=256 perturbed initial states, f32, 2 AL x 1
+     DDP, sequential line search, reg floor 1e-3, the fused LQ and trial
+     kernels, the sweep and linroll kernels; one warm-up solve, timed
+     solves (CUDA events + a host fetch of cost and success), then one
+     solve under torch.profiler for the launches per solve and the
+     device's busy time;
+  3b. the same for the configuration without the fused LQ and trial
+     (generic LQ and rollout, gathered resets, sweep and linroll kernels);
+  4. the bench default with the plain twins of all four kernels, and the
+     difference between the two solves;
   5. the MPC runtime: initialize + 5 updates at B=1, each fed the solver's
      own predicted state;
 then the card's name and power limit, one JSON line of the kernels and
@@ -26,6 +35,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -33,9 +43,12 @@ import torch
 from cafempc_tpu_torch import convert
 from cafempc_tpu_torch.models import hkd
 from cafempc_tpu_torch.ops import _ext
+from cafempc_tpu_torch.ops import hkd_lq as hkd_lq_mod
+from cafempc_tpu_torch.ops import hkd_trial as hkd_trial_mod
 from cafempc_tpu_torch.ops import linroll as linroll_mod
 from cafempc_tpu_torch.ops import sweep as sweep_mod
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch, make_batched_solver
+from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
 from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
@@ -51,6 +64,10 @@ SEED = 0
 # kernel vs plain-twin solve in f32: the sweep's sums are reassociated
 # along the 112-knot recursion, and the line search carries the difference
 COST_RTOL = 1e-3
+MAX_RESETS = 16
+# the kernels' wrappers and their launch counters
+KERNELS = {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll,
+           "hkd_lq": hkd_lq_mod.hkd_lq, "hkd_trial": hkd_trial_mod.hkd_trial}
 
 
 def card():
@@ -169,6 +186,119 @@ def phase_kernels(label):
     return f32
 
 
+def hkd_operands(gen, dtype, problem):
+    """Seeded operands of the fused HKD LQ and trial kernels on the bench
+    plan: states, controls and penalties perturbed from the plan's, ground
+    forces spread across the relaxed barrier's threshold (both branches
+    active), AL terms on at half the terminal knots' legs, per-scenario
+    eps in (0.05, 1], and scenarios 0-1 (huge) and 2-3 (infinite) blown
+    up in the search direction, so that their trial is not ok."""
+    plan, pen, _, Xbar0, Ubar0 = problem
+    dev, f64 = DEVICE, torch.float64
+
+    def rnd(*shape, s):
+        return (torch.randn(*shape, generator=gen, dtype=f64) * s).to(
+            dev, dtype)
+
+    def uni(*shape, lo, hi):
+        return (torch.rand(*shape, generator=gen, dtype=f64) * (hi - lo)
+                + lo).to(dev, dtype)
+
+    NK, N = N_STEPS + 1, N_STEPS
+    term = plan.knot.is_terminal[None, :, None] > 0
+    d = dict(
+        X=Xbar0 + rnd(B, NK, 24, s=0.05), U=Ubar0 + rnd(B, N, 24, s=0.3),
+        reb_delta=pen.reb_delta * uni(B, N, 20, lo=1.0, hi=1.5),
+        reb_eps=pen.reb_eps * uni(B, N, 20, lo=1.0, hi=2.0),
+        reb_act=pen.reb_active, al_lam=rnd(B, NK, 4, s=1.0),
+        al_sig=pen.al_sigma * uni(B, NK, 4, lo=1.0, hi=2.0),
+        al_act=torch.maximum(pen.al_active, (term & (
+            uni(B, NK, 4, lo=0.0, hi=1.0) < 0.5)).to(dtype)),
+        eps=uni(B, lo=0.05, hi=1.0), dX=rnd(B, NK, 24, s=0.02),
+        dUK=rnd(B, N, 24, s=0.1))
+    d["x0"] = d["X"][:, 0] + rnd(B, 24, s=0.01)
+    d["dX"][0:2, 3] = 1e7
+    d["dX"][2:4, 7] = float("inf")
+    return d
+
+
+LQ_IN = ("X", "U", "reb_delta", "reb_eps", "reb_act", "al_lam", "al_sig",
+         "al_act")
+TRIAL_IN = ("eps", "x0", "X", "dX", "U", "dUK") + LQ_IN[2:]
+
+
+def phase_hkd_kernels(label):
+    """The fused HKD LQ and trial kernels against their twins in f32 and
+    f64 on the bench plan; returns the f32 figures."""
+    f32 = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        problem, _ = bench_problem(dtype)
+        plan = problem[0]
+        n_reset = int(plan.step.is_reset.sum())
+        n_pad = int((plan.step.active == 0).sum())
+        if not (n_reset and n_pad):
+            fail("the bench plan has no reset or no padding step")
+        d = hkd_operands(torch.Generator().manual_seed(SEED + 1), dtype,
+                         problem)
+        table = hf.knot_table(plan)
+        on = d["reb_act"] > 0
+        g = hkd_lq_mod.friction_values(d["U"], hp.MU_FRIC)
+        n_log = int((g[on] > d["reb_delta"][on]).sum())
+        n_quad = int((g[on] <= d["reb_delta"][on]).sum())
+        if not (n_log and n_quad):
+            fail("the ReB operands do not reach both barrier branches")
+        lq_args = [d[k] for k in LQ_IN] + [table, hp.MU_FRIC]
+        tr_args = [d[k] for k in TRIAL_IN] + [table, hp.MU_FRIC]
+        got_lq = hkd_lq_mod.hkd_lq(*lq_args)
+        want_lq = hkd_lq_mod.hkd_lq_reference(*lq_args)
+        got_tr = hkd_trial_mod.hkd_trial(*tr_args)
+        want_tr = hkd_trial_mod.hkd_trial_reference(*tr_args)
+        torch.cuda.synchronize()
+        ok_k, ok_r = got_tr[-1] > 0.5, want_tr[-1] > 0.5
+        if not torch.equal(ok_k, ok_r):
+            fail(f"hkd_trial ok flags differ ({dtype})")
+        n_bad = int((~ok_k).sum())
+        if n_bad != 4:
+            fail(f"expected 4 blown-up trials, the kernel flagged {n_bad}")
+        every = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        errs = {f"lq.{n}": errors(a, b, every) for n, a, b in zip(
+            ("A", "B", "lx", "lu", "lxx", "luu", "phix", "phixx"), got_lq,
+            want_lq)}
+        errs.update({f"trial.{n}": errors(a, b, ok_k) for n, a, b in zip(
+            ("X", "U", "Xsim", "Defect", "g", "h", "cq", "cost", "feas",
+             "maxp", "maxt"), got_tr, want_tr)})
+        worst = max(e[1] for e in errs.values())
+        print(f"[2] hkd kernels vs twins {str(dtype)[6:]}: max err (abs, "
+              "normalized by max abs) "
+              + " ".join(f"{k}=({a:.3e}, {r:.3e})"
+                         for k, (a, r) in errs.items())
+              + f"; {n_reset} reset and {n_pad} padding steps, ReB active "
+              f"entries on the log / quadratic branch {n_log} / {n_quad}; "
+              f"ok flags equal, {n_bad} blown-up trials flagged by both "
+              f"(tol {tol:g})", flush=True)
+        if not worst <= tol:
+            fail(f"an hkd kernel disagrees with its twin in {dtype}: "
+                 f"{worst:.3e}")
+        if dtype == torch.float32:
+            f32["hkd_lq_err"] = max(v[0] for k, v in errs.items()
+                                    if k.startswith("lq."))
+            f32["hkd_trial_err"] = max(v[0] for k, v in errs.items()
+                                       if k.startswith("trial."))
+            f32["hkd_lq_ms"] = time_ms(
+                lambda: hkd_lq_mod.hkd_lq(*lq_args), 20)
+            f32["hkd_lq_plain_ms"] = time_ms(
+                lambda: hkd_lq_mod.hkd_lq_reference(*lq_args), 5)
+            f32["hkd_trial_ms"] = time_ms(
+                lambda: hkd_trial_mod.hkd_trial(*tr_args), 50)
+            f32["hkd_trial_plain_ms"] = time_ms(
+                lambda: hkd_trial_mod.hkd_trial_reference(*tr_args), 5)
+    print(f"[2] f32 times at B={B} N={N_STEPS} ({label}): hkd_lq kernel "
+          f"{f32['hkd_lq_ms']:.4f} ms vs twin {f32['hkd_lq_plain_ms']:.3f} "
+          f"ms; hkd_trial kernel {f32['hkd_trial_ms']:.4f} ms vs twin "
+          f"{f32['hkd_trial_plain_ms']:.3f} ms", flush=True)
+    return f32
+
+
 def bench_problem(dtype):
     """The bench `hkd` configuration (JAX package bench.py:58-84) on the
     synthetic bound reference: plan, penalties, B perturbed x0 and the
@@ -209,46 +339,122 @@ def timed_solves(solve, args, n):
     return res, cost, success, ms
 
 
-def phase_solves(label):
-    """Phases 3 and 4: the bench configuration with the kernels, then with
-    the plain twins.  Returns the kernels' launch counts in phase 3."""
-    dtype = torch.float32
-    args, meta = bench_problem(dtype)
-    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
-    kw = dict(trim_output=True, parallel_line_search=False,
-              fused_riccati=True, max_resets=16, reg_floor=1e-3)
-    solve = make_batched_solver(hp.make_hkd_fns(), opts, **kw)
-    sweep_mod.sweep.launches = 0
-    linroll_mod.linroll.launches = 0
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def profile_solve(solve, args):
+    """One solve under torch.profiler: (kernel launches, other device ops
+    (copies, fills), device busy ms, wall ms, the five device ops with the
+    most time as (name, ms, count)), or None where the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(*args).cost.cpu()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(((k[:48], ms, n) for k, (ms, n) in by_name.items()),
+                 key=lambda t: -t[1])[:5]
+    return len(dev) - len(copies), len(copies), busy, wall, top
+
+
+SOLVE_KW = dict(trim_output=True, parallel_line_search=False,
+                fused_riccati=True, max_resets=MAX_RESETS, reg_floor=1e-3)
+OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
+
+
+def fused_hooks():
+    return dict(fused_forward=hf.make_hkd_fused_forward(),
+                fused_lq=hf.make_hkd_fused_lq())
+
+
+def phase_solve(label, tag, name, args, meta, hooks, want_kernels):
+    """Timed solves of one configuration through the kernels: counts set
+    to 0 just before and read just after; every kernel in want_kernels
+    must have launched, and every scenario must succeed."""
+    solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **hooks, **SOLVE_KW)
+    reset_counts()
     res, cost, success, ms = timed_solves(solve, args, N_TIMED)
-    launches = {"sweep": sweep_mod.sweep.launches,
-                "linroll": linroll_mod.linroll.launches}
+    launches = read_counts()
+    prof = profile_solve(solve, args)
     med = statistics.median(ms)
     n_ok = int(success.sum())
-    print(f"[3] hkd bench config ({len(meta['phases'])} phases, "
-          f"{meta['n_knots']} knots), B={B} f32, kernels: "
+    per_solve = {k: v / (N_TIMED + 1) for k, v in launches.items()}
+    if prof is None:
+        prof_txt = "profile: no device events seen (not measured)"
+    else:
+        n_k, n_c, busy, wall, top = prof
+        prof_txt = (f"profile of one solve: {n_k} kernel launches + {n_c} "
+                    f"copies/fills, device busy {busy:.2f} ms of "
+                    f"{wall:.2f} ms wall, idle share {1 - busy / wall:.3f}; "
+                    "most device time: " + "; ".join(
+                        f"{name} {ms:.2f} ms x{n}" for name, ms, n in top))
+    print(f"[{tag}] hkd {name} ({len(meta['phases'])} phases, "
+          f"{meta['n_knots']} knots), B={B} f32: "
           f"{B / (med / 1e3):.1f} solves/s, median {med:.2f} ms per batched "
           f"solve (each: {', '.join(f'{m:.2f}' for m in ms)}); "
           f"success {n_ok}/{B}, cost finite "
           f"{bool(torch.isfinite(cost).all())}, iters "
           f"{res.info.iters[0].item()}, ls {res.info.ls_iters.sum().item()}, "
-          f"reg {res.info.reg_iters.sum().item()}; launches {launches} "
-          f"[{label}]", flush=True)
+          f"reg {res.info.reg_iters.sum().item()}; kernel launches over "
+          f"{N_TIMED + 1} solves {launches} (per solve {per_solve}); "
+          f"{prof_txt} [{label}]", flush=True)
     if n_ok != B or not bool(torch.isfinite(cost).all()):
-        fail("the kernel solve did not succeed on every scenario")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+        fail(f"the {name} solve did not succeed on every scenario")
+    missed = [k for k in want_kernels if launches[k] == 0]
+    if missed:
+        fail(f"kernels of the {name} path were never launched: {missed}")
+    return res, cost, success, med, launches
 
-    solve_p = make_batched_solver(hp.make_hkd_fns(), opts, plain_ops=True,
-                                  **kw)
+
+def phase_solves(label):
+    """Phases 3, 3b and 4: the bench default through all four kernels, the
+    configuration without the fused LQ and trial, and the bench default
+    through the plain twins.  Returns the kernels' launch counts in
+    phase 3."""
+    args, meta = bench_problem(torch.float32)
+    n_reset = int(args[0].step.is_reset.sum())
+    if n_reset > MAX_RESETS:
+        fail(f"the plan has {n_reset} resets: the fused paths apply every "
+             f"one, the generic rollout only the first {MAX_RESETS}")
+    res, cost, success, med, launches = phase_solve(
+        label, "3", "bench default (fused LQ + trial)", args, meta,
+        fused_hooks(), KERNELS)
+    phase_solve(label, "3b", "without the fused LQ and trial", args, meta,
+                {}, ("sweep", "linroll"))
+
+    solve_p = make_batched_solver(hp.make_hkd_fns(), OPTS, plain_ops=True,
+                                  **fused_hooks(), **SOLVE_KW)
+    reset_counts()
     res_p, cost_p, success_p, ms_p = timed_solves(solve_p, args, 2)
+    if any(read_counts().values()):
+        fail(f"the plain-twin solve launched kernels: {read_counts()}")
     med_p = statistics.median(ms_p)
     dX = float((res.Xbar - res_p.Xbar).abs().max())
     dU = float((res.Ubar - res_p.Ubar).abs().max())
     dc = float(((cost - cost_p) / cost_p).abs().max())
-    print(f"[4] plain twins: {B / (med_p / 1e3):.1f} solves/s (median "
-          f"{med_p:.2f} ms) vs kernels {B / (med / 1e3):.1f} solves/s; "
-          f"success {int(success_p.sum())}/{B}; kernel vs plain solve: max "
+    print(f"[4] bench default, plain twins of all four kernels: "
+          f"{B / (med_p / 1e3):.1f} solves/s (median {med_p:.2f} ms) vs "
+          f"kernels {B / (med / 1e3):.1f} solves/s; success "
+          f"{int(success_p.sum())}/{B}; kernel vs plain solve: max "
           f"|dXbar| {dX:.3e}, max |dUbar| {dU:.3e}, cost rel diff "
           f"{dc:.3e} (tol {COST_RTOL:g}) [{label}]", flush=True)
     if not (np.isfinite(dX) and np.isfinite(dU)):
@@ -303,6 +509,7 @@ def main():
                        or "spill" in l),
           flush=True)
     f32 = phase_kernels(label)
+    f32.update(phase_hkd_kernels(label))
     launches = phase_solves(label)
     args, _ = bench_problem(torch.float64)
     phase_runtime(label, args[2][0].cpu().numpy())
@@ -318,7 +525,18 @@ def main():
          "source": "cafempc_tpu_torch/ops/csrc/linroll.cu",
          "replaces": "cafempc_tpu/ops/fused_linroll.py:73",
          "launches": launches["linroll"], "max_abs_err": f32["linroll_err"],
-         "ms": f32["linroll_ms"], "plain_ms": f32["linroll_plain_ms"]}]}))
+         "ms": f32["linroll_ms"], "plain_ms": f32["linroll_plain_ms"]},
+        {"name": "hkd_lq", "route": "cuda",
+         "source": "cafempc_tpu_torch/ops/csrc/hkd_lq.cu",
+         "replaces": "cafempc_tpu/ops/fused_hkd_lq.py:437",
+         "launches": launches["hkd_lq"], "max_abs_err": f32["hkd_lq_err"],
+         "ms": f32["hkd_lq_ms"], "plain_ms": f32["hkd_lq_plain_ms"]},
+        {"name": "hkd_trial", "route": "cuda",
+         "source": "cafempc_tpu_torch/ops/csrc/hkd_trial.cu",
+         "replaces": "cafempc_tpu/ops/fused_hkd_trial.py:317",
+         "launches": launches["hkd_trial"],
+         "max_abs_err": f32["hkd_trial_err"], "ms": f32["hkd_trial_ms"],
+         "plain_ms": f32["hkd_trial_plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,15 +12,19 @@ import torch
 
 from cafempc_tpu_torch.convert import from_numpy
 from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.ops import hkd_lq as hl
+from cafempc_tpu_torch.ops import hkd_trial as ht
 from cafempc_tpu_torch.ops import linroll as lr
 from cafempc_tpu_torch.ops import sweep as sw
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch
+from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
 from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
-from torch_port_inputs import make_inputs
+from torch_port_inputs import (HKD_LQ_IN, HKD_TRIAL_IN, hkd_operands,
+                               make_inputs)
 
 # (dtype, tolerance on the error normalized by the twin's max |value|):
 # float32 sums in another order than the twin's batched matmuls
@@ -36,7 +40,17 @@ def cuda():
 
 
 def _rel_err(got, want):
-    return float((got - want).abs().max() / want.abs().max())
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def _hkd_plan():
+    """The 0.3 s plan (40 steps: resets and padding) on the synthetic
+    bound reference."""
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    return hp.build_hkd_plan(qr, hp.HKDConfig(plan_duration=0.3,
+                                              n_steps_max=40))
 
 
 @pytest.mark.gpu
@@ -84,14 +98,40 @@ def test_kernels_refuse_other_dtypes(cuda):
                    torch.zeros(2, 4, device=cuda, dtype=m.dtype))
 
 
+HKD_OPS = {"hkd_lq": (hl.hkd_lq, hl.hkd_lq_reference, HKD_LQ_IN),
+           "hkd_trial": (ht.hkd_trial, ht.hkd_trial_reference, HKD_TRIAL_IN)}
+
+
 @pytest.mark.gpu
-def test_solve_through_kernels_matches_twins(cuda):
-    """A B=4 f64 solve of a 0.3 s plan: kernels against twins, same
-    iteration counts, trajectories to 1e-8."""
-    qr = QuadReference(synthetic_bound_reference(duration=1.0))
-    qr.initialize(0.3)
-    plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
-        qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40))
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("op", sorted(HKD_OPS))
+def test_hkd_kernel_matches_twin(cuda, op, dtype, tol):
+    """The fused HKD LQ and trial kernels against their twins on 8
+    scenarios of a 40-step plan; scenario 1's trial is blown up, so its
+    `ok` is 0 in both and its values are not compared."""
+    fn, twin, names = HKD_OPS[op]
+    plan_np, pen_np, Xbar0, Ubar0, _ = _hkd_plan()
+    d = hkd_operands(plan_np, pen_np, Xbar0, Ubar0, 8, seed=31)
+    table = hf.knot_table(from_numpy(plan_np, cuda, dtype))
+    args = [torch.as_tensor(d[k], device=cuda, dtype=dtype)
+            for k in names] + [table, hp.MU_FRIC]
+    before = fn.launches
+    got = fn(*args)
+    want = twin(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    keep = slice(None)
+    if op == "hkd_trial":
+        assert torch.equal(got[-1], want[-1])
+        keep = want[-1] > 0.5
+        assert keep.tolist() == [b != 1 for b in range(8)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel_err(g[keep], w[keep]) < tol
+
+
+def _solve_args(cuda):
+    plan_np, pen_np, Xbar0, Ubar0, meta = _hkd_plan()
     f64 = torch.float64
     body = torch.zeros(12, dtype=f64)
     body[5] = 0.2486
@@ -102,8 +142,24 @@ def test_solve_through_kernels_matches_twins(cuda):
         np.random.default_rng(7).normal(size=(4, 24)))
     plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
                                          cuda, f64)
-    args = (plan, broadcast_batch(pen, 4), x0.to(cuda),
+    return (plan, broadcast_batch(pen, 4), x0.to(cuda),
             broadcast_batch(Xbar0, 4), broadcast_batch(Ubar0, 4))
+
+
+def _same_solve(got, want):
+    assert bool(got.success.all())
+    for f in ("iters", "ls_iters", "reg_iters"):
+        assert torch.equal(getattr(got.info, f), getattr(want.info, f))
+    for f in ("Xbar", "Ubar"):
+        assert float((getattr(got, f) - getattr(want, f)).abs().max()) < 1e-8
+    assert float(((got.cost - want.cost) / want.cost).abs().max()) < 1e-10
+
+
+@pytest.mark.gpu
+def test_solve_through_kernels_matches_twins(cuda):
+    """A B=4 f64 solve of a 0.3 s plan: kernels against twins, same
+    iteration counts, trajectories to 1e-8."""
+    args = _solve_args(cuda)
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
     kw = dict(max_resets=16, reg_floor=1e-3)
     before = (sw.sweep.launches, lr.linroll.launches)
@@ -112,9 +168,29 @@ def test_solve_through_kernels_matches_twins(cuda):
     assert sw.sweep.launches > before[0]
     assert lr.linroll.launches > before[1]
     want = make_solver(hp.make_hkd_fns(), opts, plain_ops=True, **kw)(*args)
-    assert bool(got.success.all())
-    for f in ("iters", "ls_iters", "reg_iters"):
-        assert torch.equal(getattr(got.info, f), getattr(want.info, f))
-    for f in ("Xbar", "Ubar"):
-        assert float((getattr(got, f) - getattr(want, f)).abs().max()) < 1e-8
-    assert float(((got.cost - want.cost) / want.cost).abs().max()) < 1e-10
+    _same_solve(got, want)
+
+
+@pytest.mark.gpu
+def test_solve_through_all_four_kernels_matches_twins(cuda):
+    """The `hkd` bench default's path (fused LQ and trial hooks) at B=4,
+    f64: through all four kernels against all four twins, same iteration
+    counts, trajectories to 1e-8; the twin solve launches no kernel."""
+    args = _solve_args(cuda)
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
+    kw = dict(max_resets=16, reg_floor=1e-3)
+    fns = (sw.sweep, lr.linroll, hl.hkd_lq, ht.hkd_trial)
+
+    def solver(plain_ops):
+        return make_solver(hp.make_hkd_fns(), opts, plain_ops=plain_ops,
+                           fused_forward=hf.make_hkd_fused_forward(),
+                           fused_lq=hf.make_hkd_fused_lq(), **kw)
+
+    before = [f.launches for f in fns]
+    got = solver(False)(*args)
+    torch.cuda.synchronize()
+    after = [f.launches for f in fns]
+    assert all(a > b for a, b in zip(after, before))
+    want = solver(True)(*args)
+    assert [f.launches for f in fns] == after
+    _same_solve(got, want)

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from cafempc_tpu_torch.convert import from_numpy
-from cafempc_tpu_torch.ops import _ext
+from cafempc_tpu_torch.ops import _ext, hkd_table
+from cafempc_tpu_torch.ops import hkd_lq as hl
+from cafempc_tpu_torch.ops import hkd_trial as ht
 from cafempc_tpu_torch.ops import linroll as lr
 from cafempc_tpu_torch.ops import sweep as sw
 from cafempc_tpu_torch.parallel.mesh import make_batched_solver
@@ -31,6 +33,47 @@ def _sweep_args(device):
             torch.zeros(Bsz, xs, xs, **f), torch.zeros(Bsz, N + 1, xs, **f),
             torch.zeros(N, dtype=torch.int32, device=device),
             torch.zeros(Bsz, **f))
+
+
+def _hkd_lq_args(device, Bsz=2, N=3):
+    f = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(Bsz, N + 1, 24, **f), torch.zeros(Bsz, N, 24, **f),
+            *[torch.ones(Bsz, N, 20, **f) for _ in range(3)],
+            *[torch.zeros(Bsz, N + 1, 4, **f) for _ in range(3)],
+            torch.zeros(N + 1, hkd_table.NCOLS, **f), 0.7)
+
+
+def _hkd_trial_args(device, Bsz=2, N=3):
+    f = dict(dtype=torch.float32, device=device)
+    X, U, *pen, table, mu = _hkd_lq_args(device, Bsz, N)
+    return (torch.ones(Bsz, **f), torch.zeros(Bsz, 24, **f), X,
+            torch.zeros_like(X), U, torch.zeros_like(U), *pen, table, mu)
+
+
+HKD_OPS = {"hkd_lq": (hl.hkd_lq, _hkd_lq_args),
+           "hkd_trial": (ht.hkd_trial, _hkd_trial_args)}
+
+
+@pytest.mark.parametrize("op", sorted(HKD_OPS))
+def test_hkd_wrappers_raise_for_non_cpu_devices_without_kernel(op):
+    """The fused HKD wrappers never reach their plain twins for a tensor
+    on a device that is neither CPU nor CUDA."""
+    fn, make_args = HKD_OPS[op]
+    with pytest.raises(ValueError, match="no kernel"):
+        fn(*make_args("meta"))
+
+
+@pytest.mark.parametrize("op", sorted(HKD_OPS))
+def test_hkd_wrappers_run_the_twin_on_cpu_and_count_no_launch(op):
+    fn, make_args = HKD_OPS[op]
+    before = fn.launches
+    out = fn(*make_args("cpu"))
+    assert out[0].shape == ((2, 3, 24, 24) if op == "hkd_lq" else (2, 4, 24))
+    assert fn.launches == before
+    bad = list(make_args("cpu"))
+    bad[-2] = bad[-2][:, :-1]
+    with pytest.raises(ValueError, match="table has shape"):
+        fn(*bad)
 
 
 def test_cuda_solve_refused_without_cuda():
