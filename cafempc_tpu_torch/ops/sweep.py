@@ -23,7 +23,11 @@ ok [B] (1.0 / 0.0), dv [B,2] = (sum Qu.dU, -sum Qu.dU).
 
 `sweep` dispatches on the tensors' device: CUDA tensors launch the
 kernel (a build or launch failure raises), CPU tensors run
-`sweep_reference`.  `sweep.launches` counts kernel launches.
+`sweep_reference`.  `sweep.launches` counts kernel launches.  Widths the
+kernel does not take (xs > 40 or us > 32) raise `ValueError` on every
+device; so do, on every device but the CPU, rows of xs or us values that
+are not a multiple of 16 bytes (the kernel copies its operands into
+shared memory by bulk copies, which move whole 16-byte units).
 """
 import torch
 
@@ -31,6 +35,9 @@ from cafempc_tpu_torch.ops import _ext
 
 PIVOT_SHIFT = 1e-9    # Cholesky of Quu - 1e-9 I (fused_sweep.py:125)
 PIVOT_FLOOR = 1e-30   # rsqrt(max(d, 1e-30)) (fused_sweep.py:129)
+MAX_XS = 40           # csrc/sweep.cu kMaxXs: the f64 working set fits a block
+MAX_US = 32           # csrc/sweep.cu kMaxUs: one warp lane per row of Quu
+ROW_ALIGN = 16        # bytes: the unit and alignment of a bulk copy
 
 
 def cholesky_pivot_rule(Quu):
@@ -108,6 +115,15 @@ def sweep_reference(A, Bm, lx, lu, lxx, luu, lux, phix_T, phixx_T, defect,
 def _check(A, Bm, lx, lu, lxx, luu, lux, phix_T, phixx_T, defect, w, reg):
     Bsz, N, xs = lx.shape
     us = lu.shape[-1]
+    if not (1 <= xs <= MAX_XS and 1 <= us <= MAX_US and N >= 1):
+        raise ValueError(f"sweep: no kernel for xs={xs}, us={us}, N={N} "
+                         f"(it takes 1 <= xs <= {MAX_XS}, 1 <= us <= "
+                         f"{MAX_US}, N >= 1)")
+    row_bytes = (xs * A.element_size(), us * A.element_size())
+    if A.device.type != "cpu" and any(n % ROW_ALIGN for n in row_bytes):
+        raise ValueError(f"sweep: no kernel for xs={xs}, us={us} in "
+                         f"{A.dtype}: the kernel takes rows of a multiple "
+                         f"of {ROW_ALIGN} bytes")
     want = dict(A=(Bsz, N, xs, xs), Bm=(Bsz, N, xs, us), lx=(Bsz, N, xs),
                 lu=(Bsz, N, us), lxx=(Bsz, N, xs, xs), luu=(Bsz, N, us, us),
                 lux=(Bsz, N, us, xs), phix_T=(Bsz, xs),
@@ -137,7 +153,10 @@ def sweep(A, Bm, lx, lu, lxx, luu, lux, phix_T, phixx_T, defect, w, reg):
         raise ValueError(f"sweep: no kernel for device {A.device}")
     Bsz, N, xs = lx.shape
     us = lu.shape[-1]
+    # a view that does not start on a 16-byte boundary is copied, since a
+    # bulk copy reads from 16-byte aligned addresses only
     ins = [t.contiguous() for t in args]
+    ins = [t if t.data_ptr() % ROW_ALIGN == 0 else t.clone() for t in ins]
     G = A.new_empty(Bsz, N, xs)
     H = A.new_empty(Bsz, N, xs, xs)
     K = A.new_empty(Bsz, N, us, xs)

@@ -13,7 +13,8 @@ Phases (one line of output each, unless noted):
      rollout, and the fused HKD LQ and trial kernels on the bench plan's
      operands perturbed from the seed (reset and padding steps, both
      branches of the relaxed barrier, per-scenario eps, scenarios blown up
-     so that their trial is not ok);
+     so that their trial is not ok); then the sweep at the runtime's B=1
+     in f64 over 112 knots;
   3. the HKD-MPC bench default at full width: synthetic bound reference,
      1.0 s plan (112 steps), B=256 perturbed initial states, f32, 2 AL x 1
      DDP, sequential line search, reg floor 1e-3, the fused LQ and trial
@@ -27,9 +28,11 @@ Phases (one line of output each, unless noted):
      difference between the two solves;
   5. the MPC runtime: initialize + 5 updates at B=1, each fed the solver's
      own predicted state;
-then the card's name and power limit, one JSON line of the kernels and
-the final `{"ok": true, "device": ...}` line.  Exits non-zero, printing
-no result, without a CUDA device or when any phase fails.
+then the card's name and power limit, one JSON line of the kernels (with
+each one's bound: bytes over the HBM rate or operations over the f32
+peak, whichever is larger) and the final `{"ok": true, "device": ...}`
+line.  Exits non-zero, printing no result, without a CUDA device or when
+any phase fails.
 """
 import json
 import statistics
@@ -65,6 +68,10 @@ SEED = 0
 # along the 112-knot recursion, and the line search carries the difference
 COST_RTOL = 1e-3
 MAX_RESETS = 16
+# the card's peaks for the bounds (published H100 SXM figures at 700 W):
+# HBM bytes/s and float32 FLOP/s outside the tensor cores (an FMA is 2)
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 # the kernels' wrappers and their launch counters
 KERNELS = {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll,
            "hkd_lq": hkd_lq_mod.hkd_lq, "hkd_trial": hkd_trial_mod.hkd_trial}
@@ -82,10 +89,11 @@ def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def sweep_inputs(gen, dtype, n_fail=8):
-    """Seeded Riccati-sweep operands at the main path's shapes, with every
-    fifth step a transform step and `n_fail` scenarios whose control
-    Hessian is negative definite at one dynamics step."""
+def sweep_inputs(gen, dtype, batch, n_fail=8):
+    """Seeded Riccati-sweep operands at the main path's widths (N=112,
+    xs=us=24) for `batch` scenarios, with every fifth step a transform step
+    and `n_fail` scenarios whose control Hessian is negative definite at
+    one dynamics step (so that the PSD check must flag them)."""
     xs = us = 24
     dev = DEVICE
 
@@ -94,23 +102,24 @@ def sweep_inputs(gen, dtype, n_fail=8):
                 * s).to(dev, dtype)
 
     def spd(n, s):
-        M = rnd(B, N_STEPS, n, n, s=0.3)
+        M = rnd(batch, N_STEPS, n, n, s=0.3)
         return M @ M.transpose(-1, -2) + s * torch.eye(n, device=dev,
                                                        dtype=dtype)
 
-    A = torch.eye(xs, device=dev, dtype=dtype) + rnd(B, N_STEPS, xs, xs,
+    A = torch.eye(xs, device=dev, dtype=dtype) + rnd(batch, N_STEPS, xs, xs,
                                                      s=0.02)
-    Bm = rnd(B, N_STEPS, xs, us, s=0.05)
+    Bm = rnd(batch, N_STEPS, xs, us, s=0.05)
     lxx, luu = spd(xs, 0.5), spd(us, 1.0)
     luu[:n_fail, N_STEPS // 2] = -torch.eye(us, device=dev, dtype=dtype)
     w = torch.zeros(N_STEPS, dtype=torch.int32, device=dev)
     w[::5] = 1
-    phixx = rnd(B, xs, xs, s=0.3)
-    return (A, Bm, rnd(B, N_STEPS, xs, s=0.5), rnd(B, N_STEPS, us, s=0.5),
-            lxx, luu, rnd(B, N_STEPS, us, xs, s=0.05),
-            rnd(B, xs, s=0.5), phixx @ phixx.transpose(-1, -2),
-            rnd(B, N_STEPS + 1, xs, s=0.01), w,
-            torch.full((B,), 1e-3, device=dev, dtype=dtype))
+    phixx = rnd(batch, xs, xs, s=0.3)
+    return (A, Bm, rnd(batch, N_STEPS, xs, s=0.5),
+            rnd(batch, N_STEPS, us, s=0.5), lxx, luu,
+            rnd(batch, N_STEPS, us, xs, s=0.05), rnd(batch, xs, s=0.5),
+            phixx @ phixx.transpose(-1, -2),
+            rnd(batch, N_STEPS + 1, xs, s=0.01), w,
+            torch.full((batch,), 1e-3, device=dev, dtype=dtype))
 
 
 def errors(a, b, mask):
@@ -132,12 +141,67 @@ def time_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def nbytes(inputs, outputs):
+    """Bytes a kernel must move: each tensor input read once, each output
+    written once."""
+    return sum(t.numel() * t.element_size() for t in (*inputs, *outputs)
+               if torch.is_tensor(t))
+
+
+def bound(n_bytes, flops):
+    """(least ms on the card, which bound) from bytes over the HBM rate
+    and float32 operations over the CUDA cores' peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_flops(ins):
+    """Operations of one sweep on these operands (an FMA is 2), counting
+    dynamics and transform steps from this run's w."""
+    A, lu, w = ins[0], ins[3], ins[10]
+    Bsz, N, xs = A.shape[:3]
+    us = lu.shape[-1]
+    n_tr = int((w > 0).sum())
+    # H'^T [A B], Gn, [Qx Qu], Qxx, Qux, Quu, Cholesky, 1 + xs solves,
+    # G and H updates
+    dyn = (xs * xs * (xs + us) + xs * xs + (xs + us) * xs + xs ** 3
+           + 2 * us * xs * xs + us * us * xs + us ** 3 / 6
+           + (1 + xs) * us * us + xs * us)
+    tr = 2 * xs ** 3 + 2 * xs * xs    # H'^T A, Gn, Qx, Qxx
+    return 2.0 * Bsz * ((N - n_tr) * dyn + n_tr * tr)
+
+
+def check_sweep_b1(label):
+    """The sweep kernel against its twin for one scenario (the runtime's
+    B=1) over N=112 knots in f64."""
+    ins = sweep_inputs(torch.Generator().manual_seed(SEED + 2),
+                       torch.float64, 1, n_fail=0)
+    got = sweep_mod.sweep(*ins)
+    want = sweep_mod.sweep_reference(*ins)
+    torch.cuda.synchronize()
+    if not (float(got[7][0]) == float(want[7][0]) == 1.0):
+        fail("the B=1 f64 sweep is not ok in the kernel or the twin")
+    every = torch.ones(1, dtype=torch.bool, device=DEVICE)
+    errs = {n: errors(got[i], want[i], every)
+            for i, n in ((0, "G"), (1, "H"), (2, "K"), (3, "dU"),
+                         (8, "dv"))}
+    worst = max(e[1] for e in errs.values())
+    ms = time_ms(lambda: sweep_mod.sweep(*ins), 50)
+    print(f"[2] sweep kernel vs twin B=1 N={N_STEPS} float64: max err (abs, "
+          "normalized by max abs) " + " ".join(
+              f"{k}=({a:.3e}, {r:.3e})" for k, (a, r) in errs.items())
+          + f"; ok in both (tol 1e-10); kernel {ms:.4f} ms [{label}]",
+          flush=True)
+    if not worst <= 1e-10:
+        fail(f"the B=1 f64 sweep disagrees with its twin: {worst:.3e}")
+
+
 def phase_kernels(label):
     """Kernel vs twin in f32 and f64; returns the f32 figures."""
     f32 = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         gen = torch.Generator().manual_seed(SEED)
-        ins = sweep_inputs(gen, dtype)
+        ins = sweep_inputs(gen, dtype, B)
         got = sweep_mod.sweep(*ins)
         want = sweep_mod.sweep_reference(*ins)
         torch.cuda.synchronize()
@@ -170,10 +234,14 @@ def phase_kernels(label):
             f32["sweep_err"] = max(errs[k][0] for k in ("G", "H", "K", "dU",
                                                         "dv"))
             f32["linroll_err"] = errs["dX"][0]
+            f32["sweep_bound"] = bound(nbytes(ins, got), sweep_flops(ins))
             f32["sweep_ms"] = time_ms(lambda: sweep_mod.sweep(*ins), 20)
             f32["sweep_plain_ms"] = time_ms(
                 lambda: sweep_mod.sweep_reference(*ins), 2)
             args = (M.contiguous(), c, dx0)
+            # dX[k+1] = M[k] dX[k] + c[k]: one FMA per entry of M
+            f32["linroll_bound"] = bound(nbytes(args, (dX,)),
+                                         2.0 * M.numel() + c.numel())
             f32["linroll_ms"] = time_ms(lambda: linroll_mod.linroll(*args),
                                         50)
             f32["linroll_plain_ms"] = time_ms(
@@ -284,6 +352,11 @@ def phase_hkd_kernels(label):
                                     if k.startswith("lq."))
             f32["hkd_trial_err"] = max(v[0] for k, v in errs.items()
                                        if k.startswith("trial."))
+            # bytes only: their per-knot arithmetic is not counted (an op
+            # bound above the byte bound would need ~10^5 operations per
+            # knot for the LQ and ~10^4 for the trial)
+            f32["hkd_lq_bound"] = bound(nbytes(lq_args, got_lq), 0.0)
+            f32["hkd_trial_bound"] = bound(nbytes(tr_args, got_tr), 0.0)
             f32["hkd_lq_ms"] = time_ms(
                 lambda: hkd_lq_mod.hkd_lq(*lq_args), 20)
             f32["hkd_lq_plain_ms"] = time_ms(
@@ -509,34 +582,28 @@ def main():
                        or "spill" in l),
           flush=True)
     f32 = phase_kernels(label)
+    check_sweep_b1(label)
     f32.update(phase_hkd_kernels(label))
     launches = phase_solves(label)
     args, _ = bench_problem(torch.float64)
     phase_runtime(label, args[2][0].cpu().numpy())
 
     print(label)
+    rows = [("sweep", "cafempc_tpu/ops/fused_sweep.py:288"),
+            ("linroll", "cafempc_tpu/ops/fused_linroll.py:73"),
+            ("hkd_lq", "cafempc_tpu/ops/fused_hkd_lq.py:437"),
+            ("hkd_trial", "cafempc_tpu/ops/fused_hkd_trial.py:317")]
     print(json.dumps({"kernels": [
-        {"name": "sweep", "route": "cuda",
-         "source": "cafempc_tpu_torch/ops/csrc/sweep.cu",
-         "replaces": "cafempc_tpu/ops/fused_sweep.py:288",
-         "launches": launches["sweep"], "max_abs_err": f32["sweep_err"],
-         "ms": f32["sweep_ms"], "plain_ms": f32["sweep_plain_ms"]},
-        {"name": "linroll", "route": "cuda",
-         "source": "cafempc_tpu_torch/ops/csrc/linroll.cu",
-         "replaces": "cafempc_tpu/ops/fused_linroll.py:73",
-         "launches": launches["linroll"], "max_abs_err": f32["linroll_err"],
-         "ms": f32["linroll_ms"], "plain_ms": f32["linroll_plain_ms"]},
-        {"name": "hkd_lq", "route": "cuda",
-         "source": "cafempc_tpu_torch/ops/csrc/hkd_lq.cu",
-         "replaces": "cafempc_tpu/ops/fused_hkd_lq.py:437",
-         "launches": launches["hkd_lq"], "max_abs_err": f32["hkd_lq_err"],
-         "ms": f32["hkd_lq_ms"], "plain_ms": f32["hkd_lq_plain_ms"]},
-        {"name": "hkd_trial", "route": "cuda",
-         "source": "cafempc_tpu_torch/ops/csrc/hkd_trial.cu",
-         "replaces": "cafempc_tpu/ops/fused_hkd_trial.py:317",
-         "launches": launches["hkd_trial"],
-         "max_abs_err": f32["hkd_trial_err"], "ms": f32["hkd_trial_ms"],
-         "plain_ms": f32["hkd_trial_plain_ms"]}]}))
+        {"name": name, "route": "cuda",
+         "source": f"cafempc_tpu_torch/ops/csrc/{name}.cu",
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": f32[f"{name}_err"], "ms": f32[f"{name}_ms"],
+         "plain_ms": f32[f"{name}_plain_ms"],
+         "bound_ms": f32[f"{name}_bound"][0],
+         "bound_by": f32[f"{name}_bound"][1],
+         # no single PyTorch call computes any of the four functions
+         "library_ms": None}
+        for name, replaces in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

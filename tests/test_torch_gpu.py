@@ -53,26 +53,77 @@ def _hkd_plan():
                                               n_steps_max=40))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_sweep_kernel_matches_twin(cuda, dtype, tol):
-    d = make_inputs(np.random.default_rng(13), 8, 16, 24, 24, w_idx=(3, 7),
-                    luu_shift=1.0, fail=(5,))
+# (B, N, xs, us): a small batch, the runtime's single scenario over the
+# bench plan's 112 knots, and the MHPC widths at an odd batch and length
+SWEEP_SHAPES = [(8, 16, 24, 24), (1, 112, 24, 24), (37, 33, 36, 12)]
+
+
+def _sweep_operands(cuda, dtype, Bsz, N, xs, us, fail=()):
+    d = make_inputs(np.random.default_rng(13), Bsz, N, xs, us,
+                    w_idx=(3, 7), luu_shift=1.0, fail=fail)
     t = [torch.as_tensor(d[k], device=cuda, dtype=dtype) for k in (
         "A", "Bm", "lx", "lu", "lxx", "luu", "lux", "phix_T", "phixx_T",
         "defect")]
-    w = torch.as_tensor(d["w"], device=cuda)
-    reg = torch.as_tensor(d["reg"], device=cuda, dtype=dtype)
+    return (*t, torch.as_tensor(d["w"], device=cuda),
+            torch.as_tensor(d["reg"], device=cuda, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_sweep_kernel_matches_twin(cuda, shape, dtype, tol):
+    """Kernel against twin with every scenario ok, then with scenario
+    B // 2 failing the PSD check at one dynamics step: identical `ok`
+    flags, and the values of every ok scenario within tol."""
+    Bsz, N, xs, us = shape
     before = sw.sweep.launches
-    got = sw.sweep(*t, w, reg)
-    want = sw.sweep_reference(*t, w, reg)
+    for fail in ((), (Bsz // 2,)):
+        args = _sweep_operands(cuda, dtype, Bsz, N, xs, us, fail)
+        got = sw.sweep(*args)
+        want = sw.sweep_reference(*args)
+        torch.cuda.synchronize()
+        ok = want[7] > 0.5
+        assert ok.tolist() == [b not in fail for b in range(Bsz)]
+        assert torch.equal(got[7] > 0.5, ok)
+        if not bool(ok.any()):
+            continue
+        for i in (0, 1, 2, 3, 4, 5, 6, 8):  # G, H, K, dU, Qu, Quu, Qux, dv
+            assert _rel_err(got[i][ok], want[i][ok]) < tol
+    assert sw.sweep.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [d for d, _ in DTYPES])
+def test_sweep_kernel_refuses_rows_not_16_byte_multiples(cuda, dtype):
+    """xs=6, us=3: rows of 24 or 12 bytes, which the kernel's bulk copies
+    cannot move; the wrapper raises and counts no launch."""
+    args = _sweep_operands(cuda, dtype, 5, 9, 6, 3)
+    before = sw.sweep.launches
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        sw.sweep(*args)
+    assert sw.sweep.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [d for d, _ in DTYPES])
+def test_sweep_kernel_copies_misaligned_operands(cuda, dtype):
+    """Operands that start one element past a 16-byte boundary give the
+    same results as aligned ones: the wrapper copies them."""
+    args = _sweep_operands(cuda, dtype, 4, 12, 24, 24)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [shifted(t) if t.is_floating_point() else t for t in args]
+    assert moved[0].data_ptr() % 16 != 0
+    got = sw.sweep(*moved)
+    want = sw.sweep(*args)
     torch.cuda.synchronize()
-    assert sw.sweep.launches == before + 1
-    ok = want[7] > 0.5
-    assert ok.tolist() == [b != 5 for b in range(8)]
-    assert torch.equal(got[7] > 0.5, ok)
-    for i in (0, 1, 2, 3, 4, 5, 6, 8):  # G, H, K, dU, Qu, Quu, Qux, dv
-        assert _rel_err(got[i][ok], want[i][ok]) < tol
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -112,6 +112,39 @@ def test_cpu_tensors_run_the_twin_and_count_no_launch():
     assert (sw.sweep.launches, lr.linroll.launches) == before
 
 
+# (xs, us, dtype, devices that refuse): widths past the kernel's limits
+# (us > 32, xs > 40) are refused on every device; rows that are not a
+# multiple of 16 bytes only where a kernel would run (the CPU runs the twin)
+REFUSED = [(4, 33, torch.float32, ("cpu", "meta")),
+           (41, 2, torch.float32, ("cpu", "meta")),
+           (6, 4, torch.float32, ("meta",)),
+           (4, 3, torch.float64, ("meta",)),
+           (6, 3, torch.float32, ("meta",))]
+
+
+@pytest.mark.parametrize("xs,us,dtype,devices", REFUSED)
+def test_sweep_refuses_widths_the_kernel_does_not_take(xs, us, dtype,
+                                                       devices):
+    """A width the kernel does not take raises and counts no launch: the
+    wrapper never falls back to the twin for a shape its kernel would
+    refuse."""
+    Bsz, N = 2, 3
+    f = dict(dtype=dtype)
+    args = (torch.zeros(Bsz, N, xs, xs, **f), torch.zeros(Bsz, N, xs, us, **f),
+            torch.zeros(Bsz, N, xs, **f), torch.zeros(Bsz, N, us, **f),
+            torch.zeros(Bsz, N, xs, xs, **f), torch.zeros(Bsz, N, us, us, **f),
+            torch.zeros(Bsz, N, us, xs, **f), torch.zeros(Bsz, xs, **f),
+            torch.zeros(Bsz, xs, xs, **f), torch.zeros(Bsz, N + 1, xs, **f),
+            torch.zeros(N, dtype=torch.int32), torch.zeros(Bsz, **f))
+    before = sw.sweep.launches
+    for device in devices:
+        with pytest.raises(ValueError, match="no kernel for xs="):
+            sw.sweep(*(a.to(device) for a in args))
+    if "cpu" not in devices:    # the twin takes any row width
+        assert sw.sweep(*args)[0].shape == (Bsz, N, xs)
+    assert sw.sweep.launches == before
+
+
 def test_wrapper_rejects_bad_shapes():
     args = list(_sweep_args("cpu"))
     args[10] = args[10].to(torch.int64)
