@@ -47,6 +47,51 @@ constexpr int XREF_S = 0, UREF_S = 24, QW = 48, RW = 72, QFOOT_R = 96,
               KACT = 229, TERM = 230, NCOLS = 231;
 }  // namespace col
 
+// sine and cosine of one angle in one call (the accurate library
+// functions; the kernels are built without fast math)
+__device__ __forceinline__ void sin_cos(float a, float* s, float* c) {
+  sincosf(a, s, c);
+}
+__device__ __forceinline__ void sin_cos(double a, double* s, double* c) {
+  sincos(a, s, c);
+}
+
+// 16 bytes of T as one vector load or store: 4 floats or 2 doubles.  The
+// pointer must be 16-byte aligned.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  static constexpr int N = 4;
+  float a[4];
+  __device__ __forceinline__ static Pack load(const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    return {{v.x, v.y, v.z, v.w}};
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+  // a store that streams past the caches (the output is read once, later)
+  __device__ __forceinline__ void store_stream(float* p) const {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+  }
+};
+template <>
+struct Pack<double> {
+  static constexpr int N = 2;
+  double a[2];
+  __device__ __forceinline__ static Pack load(const double* p) {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    return {{v.x, v.y}};
+  }
+  __device__ __forceinline__ void store(double* p) const {
+    *reinterpret_cast<double2*>(p) = make_double2(a[0], a[1]);
+  }
+  __device__ __forceinline__ void store_stream(double* p) const {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(a[0], a[1]));
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ void matmul3(const T a[3][3], const T b[3][3],
                                         T out[3][3]) {
@@ -57,14 +102,11 @@ __device__ __forceinline__ void matmul3(const T a[3][3], const T b[3][3],
 
 // R = Rz(yaw) Ry(pitch) Rx(roll) and its partials wrt (yaw, pitch, roll):
 // dR_y = skew(ez) R, dR_p = Rz skew(ey) Ry Rx, dR_r = Rz Ry skew(ex) Rx
-// (models/hkd.py::_rot_derivs).
+// (models/hkd.py::_rot_derivs), from the sines and cosines of the angles
+// (the second form takes the angles).
 template <typename T>
-__device__ void rot_derivs(const T* eul, T R[3][3], T dRy[3][3],
-                           T dRp[3][3], T dRr[3][3]) {
-  T sy, cy, sp, cp, sr, cr;
-  sy = sin(eul[0]); cy = cos(eul[0]);
-  sp = sin(eul[1]); cp = cos(eul[1]);
-  sr = sin(eul[2]); cr = cos(eul[2]);
+__device__ void rot_derivs(T sy, T cy, T sp, T cp, T sr, T cr, T R[3][3],
+                           T dRy[3][3], T dRp[3][3], T dRr[3][3]) {
   const T z = T(0), o = T(1);
   const T Rz[3][3] = {{cy, -sy, z}, {sy, cy, z}, {z, z, o}};
   const T Ry[3][3] = {{cp, z, sp}, {z, o, z}, {-sp, z, cp}};
@@ -84,14 +126,25 @@ __device__ void rot_derivs(const T* eul, T R[3][3], T dRy[3][3],
   matmul3(t2, Rx, dRr);
 }
 
+template <typename T>
+__device__ void rot_derivs(const T* eul, T R[3][3], T dRy[3][3],
+                           T dRp[3][3], T dRr[3][3]) {
+  T sy, cy, sp, cp, sr, cr;
+  sin_cos(eul[0], &sy, &cy);
+  sin_cos(eul[1], &sp, &cp);
+  sin_cos(eul[2], &sr, &cr);
+  rot_derivs(sy, cy, sp, cp, sr, cr, R, dRy, dRp, dRr);
+}
+
 // Foot position of leg l in the body frame from its joint angles q[3]
 // (models/hkd.py::_legs_fk_local); with J, its Jacobian wrt q
 // (_legs_jacobian_local).
 template <typename T>
 __device__ void leg_fk(int l, const T* q, T p[3], T J[3][3]) {
-  const T s1 = sin(q[0]), c1 = cos(q[0]);
-  const T s2 = sin(q[1]), c2 = cos(q[1]);
-  const T s3 = sin(q[2]), c3 = cos(q[2]);
+  T s1, c1, s2, c2, s3, c3;
+  sin_cos(q[0], &s1, &c1);
+  sin_cos(q[1], &s2, &c2);
+  sin_cos(q[2], &s3, &c3);
   const T s23 = s2 * c3 + c2 * s3;
   const T c23 = c2 * c3 - s2 * s3;
   const T sig = T(side_sign(l));

@@ -30,7 +30,9 @@ h [B,N+1,4] and cq, cost, feas, maxp, maxt, ok [B] (ok 1.0 / 0.0).
 
 `hkd_trial` dispatches on the tensors' device: CUDA tensors launch the
 kernel (a build or launch failure raises), CPU tensors run
-`hkd_trial_reference`.  `hkd_trial.launches` counts kernel launches.
+`hkd_trial_reference`.  `hkd_trial.launches` counts kernel launches.  The
+kernel stages a scenario in one CTA's shared memory, so on the card it
+takes N <= 401 in float64 and N <= 804 in float32 (the bench plan has 112).
 """
 import torch
 
@@ -40,6 +42,14 @@ from cafempc_tpu_torch.ops.hkd_lq import friction_values
 from cafempc_tpu_torch.solver import penalty
 
 OK_NORM_LIMIT = 1e12   # max squared state norm of an acceptable trial
+MAX_SMEM = 232448      # bytes of shared memory one CTA can have (H100)
+
+
+def smem_bytes(N, itemsize):
+    """Shared memory of the kernel's CTA for one scenario of N steps: X,
+    Xsim [N+1, 24] and U [N, 24] staged, plus a reduction scratch of 7
+    values for each of up to 16 warps (csrc/hkd_trial.cu::trial_smem)."""
+    return (2 * (N + 1) * 24 + N * 24 + 16 * 7) * itemsize
 
 
 def hkd_trial_reference(eps, x0, Xbar, dX, Ubar, dUK, reb_delta, reb_eps,
@@ -121,16 +131,24 @@ def hkd_trial(eps, x0, Xbar, dX, Ubar, dUK, reb_delta, reb_eps, reb_act,
     _check(*args)
     if Xbar.device.type == "cpu":
         return hkd_trial_reference(*args, mu)
-    if Xbar.device.type != "cuda":
-        raise ValueError(f"hkd_trial: no kernel for device {Xbar.device}")
     Bsz, NK = Xbar.shape[:2]
     N = NK - 1
+    if smem_bytes(N, Xbar.element_size()) > MAX_SMEM:
+        raise ValueError(f"hkd_trial: no kernel for N={N} in {Xbar.dtype}: "
+                         "a scenario's X, U and Xsim must fit in one CTA's "
+                         f"{MAX_SMEM} bytes of shared memory")
+    if Xbar.device.type != "cuda":
+        raise ValueError(f"hkd_trial: no kernel for device {Xbar.device}")
+    # the kernel moves rows 16 bytes at a time, so a view that does not
+    # start on a 16-byte boundary is copied
+    ins = [t.contiguous() for t in args]
+    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     outs = [torch.empty_like(Xbar), Xbar.new_empty(Bsz, N, 24),
             torch.empty_like(Xbar), torch.empty_like(Xbar),
             Xbar.new_empty(Bsz, N, 20), Xbar.new_empty(Bsz, NK, 4)] \
         + [Xbar.new_empty(Bsz) for _ in range(6)]
-    _ext.launch("hkd_trial", Xbar.dtype, Bsz, N, 24, 24,
-                [t.contiguous() for t in args], outs, doubles=(mu,))
+    _ext.launch("hkd_trial", Xbar.dtype, Bsz, N, 24, 24, ins, outs,
+                doubles=(mu,))
     hkd_trial.launches += 1
     return tuple(outs)
 

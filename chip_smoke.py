@@ -28,11 +28,13 @@ Phases (one line of output each, unless noted):
      difference between the two solves;
   5. the MPC runtime: initialize + 5 updates at B=1, each fed the solver's
      own predicted state;
-then the card's name and power limit, one JSON line of the kernels (with
-each one's bound: bytes over the HBM rate or operations over the f32
-peak, whichever is larger) and the final `{"ok": true, "device": ...}`
-line.  Exits non-zero, printing no result, without a CUDA device or when
-any phase fails.
+then the card's name and power limit, one JSON line of the kernels (`ms`
+each one's device time per launch by torch.profiler, `event_ms` its
+CUDA-event time per wrapper call, host work included, and its bound:
+bytes over the HBM rate or operations over the f32 peak, whichever is
+larger) and the final `{"ok": true, "device": ...}` line.  Exits
+non-zero, printing no result, without a CUDA device or when any phase
+fails.
 """
 import json
 import statistics
@@ -130,6 +132,8 @@ def errors(a, b, mask):
 
 
 def time_ms(fn, n):
+    """CUDA-event ms per call over n back-to-back calls (the wrapper's host
+    work included where it exceeds the device's)."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -139,6 +143,31 @@ def time_ms(fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def kernel_ms(fn, n, kernel):
+    """Device ms per launch of the CUDA kernel whose name contains `kernel`,
+    by torch.profiler over n calls of fn: summed over the launches it
+    recorded by name, divided by their count (a run of launches has been
+    seen to come back with a few of them missing)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    if len(us) < n // 2:
+        fail(f"the profiler saw {len(us)} launches of {kernel}, not {n}")
+    return sum(us) / len(us) / 1e3
+
+
+def both_ms(fn, n, kernel):
+    """(profiler kernel ms, CUDA-event ms per call) of one wrapper."""
+    return kernel_ms(fn, n, kernel), time_ms(fn, n)
 
 
 def nbytes(inputs, outputs):
@@ -235,21 +264,23 @@ def phase_kernels(label):
                                                         "dv"))
             f32["linroll_err"] = errs["dX"][0]
             f32["sweep_bound"] = bound(nbytes(ins, got), sweep_flops(ins))
-            f32["sweep_ms"] = time_ms(lambda: sweep_mod.sweep(*ins), 20)
+            f32["sweep_ms"], f32["sweep_event_ms"] = both_ms(
+                lambda: sweep_mod.sweep(*ins), 20, "sweep_kernel")
             f32["sweep_plain_ms"] = time_ms(
                 lambda: sweep_mod.sweep_reference(*ins), 2)
             args = (M.contiguous(), c, dx0)
             # dX[k+1] = M[k] dX[k] + c[k]: one FMA per entry of M
             f32["linroll_bound"] = bound(nbytes(args, (dX,)),
                                          2.0 * M.numel() + c.numel())
-            f32["linroll_ms"] = time_ms(lambda: linroll_mod.linroll(*args),
-                                        50)
+            f32["linroll_ms"], f32["linroll_event_ms"] = both_ms(
+                lambda: linroll_mod.linroll(*args), 50, "linroll_kernel")
             f32["linroll_plain_ms"] = time_ms(
                 lambda: linroll_mod.linroll_reference(*args), 5)
-    print(f"[2] f32 times at B={B} N={N_STEPS} xs=us=24 ({label}): sweep "
-          f"kernel {f32['sweep_ms']:.3f} ms vs twin "
-          f"{f32['sweep_plain_ms']:.3f} ms; linroll kernel "
-          f"{f32['linroll_ms']:.4f} ms vs twin "
+    print(f"[2] f32 times at B={B} N={N_STEPS} xs=us=24 ({label}), kernel "
+          f"ms by the profiler (CUDA events per wrapper call): sweep "
+          f"{f32['sweep_ms']:.4f} ({f32['sweep_event_ms']:.4f}) vs twin "
+          f"{f32['sweep_plain_ms']:.3f} ms; linroll "
+          f"{f32['linroll_ms']:.4f} ({f32['linroll_event_ms']:.4f}) vs twin "
           f"{f32['linroll_plain_ms']:.3f} ms", flush=True)
     return f32
 
@@ -357,18 +388,21 @@ def phase_hkd_kernels(label):
             # knot for the LQ and ~10^4 for the trial)
             f32["hkd_lq_bound"] = bound(nbytes(lq_args, got_lq), 0.0)
             f32["hkd_trial_bound"] = bound(nbytes(tr_args, got_tr), 0.0)
-            f32["hkd_lq_ms"] = time_ms(
-                lambda: hkd_lq_mod.hkd_lq(*lq_args), 20)
+            f32["hkd_lq_ms"], f32["hkd_lq_event_ms"] = both_ms(
+                lambda: hkd_lq_mod.hkd_lq(*lq_args), 20, "hkd_lq_kernel")
             f32["hkd_lq_plain_ms"] = time_ms(
                 lambda: hkd_lq_mod.hkd_lq_reference(*lq_args), 5)
-            f32["hkd_trial_ms"] = time_ms(
-                lambda: hkd_trial_mod.hkd_trial(*tr_args), 50)
+            f32["hkd_trial_ms"], f32["hkd_trial_event_ms"] = both_ms(
+                lambda: hkd_trial_mod.hkd_trial(*tr_args), 50,
+                "hkd_trial_kernel")
             f32["hkd_trial_plain_ms"] = time_ms(
                 lambda: hkd_trial_mod.hkd_trial_reference(*tr_args), 5)
-    print(f"[2] f32 times at B={B} N={N_STEPS} ({label}): hkd_lq kernel "
-          f"{f32['hkd_lq_ms']:.4f} ms vs twin {f32['hkd_lq_plain_ms']:.3f} "
-          f"ms; hkd_trial kernel {f32['hkd_trial_ms']:.4f} ms vs twin "
-          f"{f32['hkd_trial_plain_ms']:.3f} ms", flush=True)
+    print(f"[2] f32 times at B={B} N={N_STEPS} ({label}), kernel ms by the "
+          f"profiler (CUDA events per wrapper call): hkd_lq "
+          f"{f32['hkd_lq_ms']:.4f} ({f32['hkd_lq_event_ms']:.4f}) vs twin "
+          f"{f32['hkd_lq_plain_ms']:.3f} ms; hkd_trial "
+          f"{f32['hkd_trial_ms']:.4f} ({f32['hkd_trial_event_ms']:.4f}) vs "
+          f"twin {f32['hkd_trial_plain_ms']:.3f} ms", flush=True)
     return f32
 
 
@@ -589,15 +623,17 @@ def main():
     phase_runtime(label, args[2][0].cpu().numpy())
 
     print(label)
-    rows = [("sweep", "cafempc_tpu/ops/fused_sweep.py:288"),
-            ("linroll", "cafempc_tpu/ops/fused_linroll.py:73"),
-            ("hkd_lq", "cafempc_tpu/ops/fused_hkd_lq.py:437"),
-            ("hkd_trial", "cafempc_tpu/ops/fused_hkd_trial.py:317")]
+    # each TPU kernel by its function's `def` line / its pallas_call line
+    rows = [("sweep", "cafempc_tpu/ops/fused_sweep.py:202/288"),
+            ("linroll", "cafempc_tpu/ops/fused_linroll.py:49/73"),
+            ("hkd_lq", "cafempc_tpu/ops/fused_hkd_lq.py:437/521"),
+            ("hkd_trial", "cafempc_tpu/ops/fused_hkd_trial.py:317/416")]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"cafempc_tpu_torch/ops/csrc/{name}.cu",
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": f32[f"{name}_err"], "ms": f32[f"{name}_ms"],
+         "event_ms": f32[f"{name}_event_ms"],
          "plain_ms": f32[f"{name}_plain_ms"],
          "bound_ms": f32[f"{name}_bound"][0],
          "bound_by": f32[f"{name}_bound"][1],

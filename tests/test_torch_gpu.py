@@ -44,13 +44,13 @@ def _rel_err(got, want):
                  / max(float(want.abs().max()), 1e-30))
 
 
-def _hkd_plan():
-    """The 0.3 s plan (40 steps: resets and padding) on the synthetic
-    bound reference."""
-    qr = QuadReference(synthetic_bound_reference(duration=1.0))
-    qr.initialize(0.3)
-    return hp.build_hkd_plan(qr, hp.HKDConfig(plan_duration=0.3,
-                                              n_steps_max=40))
+def _hkd_plan(duration=0.3, n_steps=40, ref_duration=1.0):
+    """A plan on the synthetic bound reference; by default the 0.3 s plan
+    (40 steps: resets and padding)."""
+    qr = QuadReference(synthetic_bound_reference(duration=ref_duration))
+    qr.initialize(duration)
+    return hp.build_hkd_plan(qr, hp.HKDConfig(plan_duration=duration,
+                                              n_steps_max=n_steps))
 
 
 # (B, N, xs, us): a small batch, the runtime's single scenario over the
@@ -152,20 +152,40 @@ def test_kernels_refuse_other_dtypes(cuda):
 HKD_OPS = {"hkd_lq": (hl.hkd_lq, hl.hkd_lq_reference, HKD_LQ_IN),
            "hkd_trial": (ht.hkd_trial, ht.hkd_trial_reference, HKD_TRIAL_IN)}
 
+# (plan seconds, steps, reference seconds, B): the 40-step plan at B=8;
+# the bench plan's 112 steps at an odd batch; 170 steps, past the 128
+# knots of one trial CTA, so its last pass over the knots is ragged (and
+# 41, 113 and 171 knots are not multiples of a warp's 8 knots)
+HKD_CASES = [(0.3, 40, 1.0, 8), (1.0, 112, 2.0, 37), (1.4, 170, 2.4, 5)]
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("op", sorted(HKD_OPS))
-def test_hkd_kernel_matches_twin(cuda, op, dtype, tol):
-    """The fused HKD LQ and trial kernels against their twins on 8
-    scenarios of a 40-step plan; scenario 1's trial is blown up, so its
-    `ok` is 0 in both and its values are not compared."""
-    fn, twin, names = HKD_OPS[op]
-    plan_np, pen_np, Xbar0, Ubar0, _ = _hkd_plan()
-    d = hkd_operands(plan_np, pen_np, Xbar0, Ubar0, 8, seed=31)
+
+def _hkd_args(cuda, op, dtype, case):
+    """Seeded operands of one HKD kernel; the trial blows up scenario 1
+    (dX 1e7 at knot 3), 2 (inf) and the last (nan), so that those are not
+    ok.  Returns the arguments and the blown-up scenarios."""
+    seconds, n_steps, ref_seconds, Bsz = case
+    plan_np, pen_np, Xbar0, Ubar0, _ = _hkd_plan(seconds, n_steps,
+                                                 ref_seconds)
+    d = hkd_operands(plan_np, pen_np, Xbar0, Ubar0, Bsz, seed=31)
+    d["dX"][2, 5, 7] = np.inf
+    d["dX"][Bsz - 1, 2, 0] = np.nan
     table = hf.knot_table(from_numpy(plan_np, cuda, dtype))
     args = [torch.as_tensor(d[k], device=cuda, dtype=dtype)
-            for k in names] + [table, hp.MU_FRIC]
+            for k in HKD_OPS[op][2]] + [table, hp.MU_FRIC]
+    return args, (1, 2, Bsz - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HKD_CASES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("op", sorted(HKD_OPS))
+def test_hkd_kernel_matches_twin(cuda, op, dtype, tol, case):
+    """The fused HKD LQ and trial kernels against their twins; the trial's
+    blown-up scenarios (1e7, inf, nan in dX) are not ok in both, and the
+    values of the others are compared."""
+    fn, twin, _ = HKD_OPS[op]
+    args, blown = _hkd_args(cuda, op, dtype, case)
+    Bsz = case[-1]
     before = fn.launches
     got = fn(*args)
     want = twin(*args)
@@ -175,10 +195,36 @@ def test_hkd_kernel_matches_twin(cuda, op, dtype, tol):
     if op == "hkd_trial":
         assert torch.equal(got[-1], want[-1])
         keep = want[-1] > 0.5
-        assert keep.tolist() == [b != 1 for b in range(8)]
+        assert keep.tolist() == [b not in blown for b in range(Bsz)]
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert _rel_err(g[keep], w[keep]) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [d for d, _ in DTYPES])
+@pytest.mark.parametrize("op", sorted(HKD_OPS))
+def test_hkd_kernel_copies_misaligned_operands(cuda, op, dtype):
+    """Operands that start one element past a 16-byte boundary give the
+    same results as aligned ones (the trial's wrapper copies them, since
+    its kernel moves rows 16 bytes at a time)."""
+    fn = HKD_OPS[op][0]
+    args, _ = _hkd_args(cuda, op, dtype, HKD_CASES[0])
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [shifted(t) if torch.is_tensor(t) else t for t in args]
+    assert all(t.data_ptr() % 16 != 0 for t in moved if torch.is_tensor(t))
+    got = fn(*moved)
+    want = fn(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(), w.nan_to_num())
 
 
 def _solve_args(cuda):

@@ -76,6 +76,25 @@ def test_hkd_wrappers_run_the_twin_on_cpu_and_count_no_launch(op):
         fn(*bad)
 
 
+# (N, dtype, what the wrapper raises for meta tensors): the longest plans
+# whose scenario fits one CTA's shared memory reach the device check, one
+# step more is refused for its length
+TRIAL_LENGTHS = [(401, torch.float64, "for device meta"),
+                 (402, torch.float64, "for N=402"),
+                 (804, torch.float32, "for device meta"),
+                 (805, torch.float32, "for N=805")]
+
+
+@pytest.mark.parametrize("N,dtype,match", TRIAL_LENGTHS)
+def test_hkd_trial_refuses_plans_too_long_for_its_kernel(N, dtype, match):
+    args = [a.to(dtype) if torch.is_tensor(a) else a
+            for a in _hkd_trial_args("meta", 1, N)]
+    before = ht.hkd_trial.launches
+    with pytest.raises(ValueError, match=match):
+        ht.hkd_trial(*args)
+    assert ht.hkd_trial.launches == before
+
+
 def test_cuda_solve_refused_without_cuda():
     """Asking for the solver's CUDA path on a machine without CUDA raises
     instead of running on the CPU."""
