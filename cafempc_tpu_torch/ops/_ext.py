@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("sweep.cu", "linroll.cu", "hkd_lq.cu", "hkd_trial.cu")
-HEADERS = ("hkd_common.cuh",)
+HEADERS = ("hkd_common.cuh", "tma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

@@ -13,26 +13,29 @@ Phases (one line of output each, unless noted):
      rollout, and the fused HKD LQ and trial kernels on the bench plan's
      operands perturbed from the seed (reset and padding steps, both
      branches of the relaxed barrier, per-scenario eps, scenarios blown up
-     so that their trial is not ok); then the sweep at the runtime's B=1
-     in f64 over 112 knots;
+     so that their trial is not ok); then the sweep and the linear rollout
+     at the runtime's B=1 in f64 over 112 knots, and the linear rollout at
+     the MHPC width xs=36 (B=37, N=33) in f32 and f64;
   3. the HKD-MPC bench default at full width: synthetic bound reference,
      1.0 s plan (112 steps), B=256 perturbed initial states, f32, 2 AL x 1
      DDP, sequential line search, reg floor 1e-3, the fused LQ and trial
      kernels, the sweep and linroll kernels; one warm-up solve, timed
      solves (CUDA events + a host fetch of cost and success), then one
-     solve under torch.profiler for the launches per solve and the
-     device's busy time;
+     solve under torch.profiler for the device's busy time, with the
+     launch counts set to 0 just before it and read just after (the
+     kernels' launches per solve);
   3b. the same for the configuration without the fused LQ and trial
      (generic LQ and rollout, gathered resets, sweep and linroll kernels);
   4. the bench default with the plain twins of all four kernels, and the
      difference between the two solves;
   5. the MPC runtime: initialize + 5 updates at B=1, each fed the solver's
      own predicted state;
-then the card's name and power limit, one JSON line of the kernels (`ms`
-each one's device time per launch by torch.profiler, `event_ms` its
-CUDA-event time per wrapper call, host work included, and its bound:
-bytes over the HBM rate or operations over the f32 peak, whichever is
-larger) and the final `{"ok": true, "device": ...}` line.  Exits
+then the card's name and power limit, one JSON line of the kernels
+(`launches` each one's launches in phase 3's profiled solve, `ms` its
+device time per launch by torch.profiler, `event_ms` its CUDA-event time
+per wrapper call, host work included, and its bound: bytes over the HBM
+rate or operations over the f32 peak, whichever is larger) and the final
+`{"ok": true, "device": ...}` line.  Exits
 non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
@@ -223,6 +226,42 @@ def check_sweep_b1(label):
           flush=True)
     if not worst <= 1e-10:
         fail(f"the B=1 f64 sweep disagrees with its twin: {worst:.3e}")
+
+
+# (B, N, xs, dtype, tolerance): the runtime's single scenario over the
+# bench plan's 112 knots, and the MHPC width at an odd batch and length
+LINROLL_CASES = [(1, N_STEPS, 24, torch.float64, 1e-10),
+                 (37, 33, 36, torch.float32, 1e-4),
+                 (37, 33, 36, torch.float64, 1e-10)]
+
+
+def check_linroll_shapes(label):
+    """The linroll kernel against its twin at LINROLL_CASES' shapes, on
+    seeded operands whose N-step products stay bounded, with its profiler
+    time per launch."""
+    for i, (Bsz, N, xs, dtype, tol) in enumerate(LINROLL_CASES):
+        gen = torch.Generator().manual_seed(SEED + 3 + i)
+
+        def rnd(*shape, s):
+            return (torch.randn(*shape, generator=gen, dtype=torch.float64)
+                    * s).to(DEVICE, dtype)
+
+        args = (rnd(Bsz, N, xs, xs, s=0.8 / xs ** 0.5), rnd(Bsz, N, xs, s=0.1),
+                rnd(Bsz, xs, s=1.0))
+        got = linroll_mod.linroll(*args)
+        want = linroll_mod.linroll_reference(*args)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want, torch.ones(Bsz, dtype=torch.bool,
+                                                device=DEVICE))
+        ms = kernel_ms(lambda: linroll_mod.linroll(*args), 50,
+                       "linroll_kernel")
+        print(f"[2] linroll kernel vs twin B={Bsz} N={N} xs={xs} "
+              f"{str(dtype)[6:]}: max err (abs, normalized by max abs) "
+              f"({err:.3e}, {rel:.3e}) (tol {tol:g}); kernel {ms:.4f} ms by "
+              f"the profiler [{label}]", flush=True)
+        if not rel <= tol:
+            fail(f"linroll disagrees with its twin at B={Bsz} N={N} xs={xs} "
+                 f"in {dtype}: {rel:.3e}")
 
 
 def phase_kernels(label):
@@ -501,10 +540,11 @@ def phase_solve(label, tag, name, args, meta, hooks, want_kernels):
     reset_counts()
     res, cost, success, ms = timed_solves(solve, args, N_TIMED)
     launches = read_counts()
+    reset_counts()
     prof = profile_solve(solve, args)
+    per_solve = read_counts()
     med = statistics.median(ms)
     n_ok = int(success.sum())
-    per_solve = {k: v / (N_TIMED + 1) for k, v in launches.items()}
     if prof is None:
         prof_txt = "profile: no device events seen (not measured)"
     else:
@@ -522,21 +562,23 @@ def phase_solve(label, tag, name, args, meta, hooks, want_kernels):
           f"{bool(torch.isfinite(cost).all())}, iters "
           f"{res.info.iters[0].item()}, ls {res.info.ls_iters.sum().item()}, "
           f"reg {res.info.reg_iters.sum().item()}; kernel launches over "
-          f"{N_TIMED + 1} solves {launches} (per solve {per_solve}); "
+          f"{N_TIMED + 1} solves {launches}, in the profiled solve "
+          f"{per_solve}; "
           f"{prof_txt} [{label}]", flush=True)
     if n_ok != B or not bool(torch.isfinite(cost).all()):
         fail(f"the {name} solve did not succeed on every scenario")
-    missed = [k for k in want_kernels if launches[k] == 0]
+    missed = [k for k in want_kernels
+              if launches[k] == 0 or per_solve[k] == 0]
     if missed:
         fail(f"kernels of the {name} path were never launched: {missed}")
-    return res, cost, success, med, launches
+    return res, cost, success, med, per_solve
 
 
 def phase_solves(label):
     """Phases 3, 3b and 4: the bench default through all four kernels, the
     configuration without the fused LQ and trial, and the bench default
-    through the plain twins.  Returns the kernels' launch counts in
-    phase 3."""
+    through the plain twins.  Returns the kernels' launches in phase 3's
+    profiled solve."""
     args, meta = bench_problem(torch.float32)
     n_reset = int(args[0].step.is_reset.sum())
     if n_reset > MAX_RESETS:
@@ -617,6 +659,7 @@ def main():
           flush=True)
     f32 = phase_kernels(label)
     check_sweep_b1(label)
+    check_linroll_shapes(label)
     f32.update(phase_hkd_kernels(label))
     launches = phase_solves(label)
     args, _ = bench_problem(torch.float64)

@@ -44,6 +44,14 @@ def _rel_err(got, want):
                  / max(float(want.abs().max()), 1e-30))
 
 
+def _shifted(t):
+    """A copy of t that starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def _hkd_plan(duration=0.3, n_steps=40, ref_duration=1.0):
     """A plan on the synthetic bound reference; by default the 0.3 s plan
     (40 steps: resets and padding)."""
@@ -110,14 +118,7 @@ def test_sweep_kernel_copies_misaligned_operands(cuda, dtype):
     """Operands that start one element past a 16-byte boundary give the
     same results as aligned ones: the wrapper copies them."""
     args = _sweep_operands(cuda, dtype, 4, 12, 24, 24)
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    moved = [shifted(t) if t.is_floating_point() else t for t in args]
+    moved = [_shifted(t) if t.is_floating_point() else t for t in args]
     assert moved[0].data_ptr() % 16 != 0
     got = sw.sweep(*moved)
     want = sw.sweep(*args)
@@ -126,19 +127,66 @@ def test_sweep_kernel_copies_misaligned_operands(cuda, dtype):
         assert torch.equal(g, w)
 
 
+# (B, N, xs): a small batch, the runtime's single scenario over the bench
+# plan's 112 knots, the MHPC width at an odd batch and length, and plans
+# shorter than one stage of the kernel's ring (8 knots at xs=24)
+LINROLL_SHAPES = [(8, 40, 24), (1, 112, 24), (37, 33, 36), (5, 1, 24),
+                  (5, 3, 24)]
+
+
+def _linroll_operands(cuda, dtype, Bsz, N, xs):
+    """Seeded operands whose N-step products stay bounded."""
+    rng = np.random.default_rng(23)
+    return tuple(torch.as_tensor(a, device=cuda, dtype=dtype) for a in (
+        rng.normal(size=(Bsz, N, xs, xs)) * 0.8 / np.sqrt(xs),
+        rng.normal(size=(Bsz, N, xs)) * 0.1, rng.normal(size=(Bsz, xs))))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_linroll_kernel_matches_twin(cuda, dtype, tol):
-    rng = np.random.default_rng(23)
-    M, c, dx0 = (torch.as_tensor(a, device=cuda, dtype=dtype) for a in (
-        rng.normal(size=(8, 40, 24, 24)) * 0.16,
-        rng.normal(size=(8, 40, 24)) * 0.1, rng.normal(size=(8, 24))))
+@pytest.mark.parametrize("shape", LINROLL_SHAPES)
+def test_linroll_kernel_matches_twin(cuda, shape, dtype, tol):
+    M, c, dx0 = _linroll_operands(cuda, dtype, *shape)
     before = lr.linroll.launches
     got = lr.linroll(M, c, dx0)
     want = lr.linroll_reference(M, c, dx0)
     torch.cuda.synchronize()
     assert lr.linroll.launches == before + 1
+    assert got.shape == want.shape
     assert _rel_err(got, want) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [d for d, _ in DTYPES])
+def test_linroll_kernel_copies_misaligned_operands(cuda, dtype):
+    """Operands that start one element past a 16-byte boundary give
+    results bit-identical to aligned ones: the wrapper copies them."""
+    args = _linroll_operands(cuda, dtype, 6, 20, 24)
+    moved = [_shifted(t) for t in args]
+    assert all(t.data_ptr() % 16 != 0 for t in moved)
+    got = lr.linroll(*moved)
+    want = lr.linroll(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_linroll_kernel_keeps_non_finite_scenarios_apart(cuda, dtype, tol):
+    """inf in one scenario's M and NaN in another's c: the same scenarios
+    are non-finite in kernel and twin, and every other scenario agrees
+    within tol."""
+    Bsz, N = 7, 40
+    M, c, dx0 = _linroll_operands(cuda, dtype, Bsz, N, 24)
+    M[2, N // 2, 5, 7] = float("inf")
+    c[4, 11, 3] = float("nan")
+    got = lr.linroll(M, c, dx0)
+    want = lr.linroll_reference(M, c, dx0)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want).flatten(1).all(1)
+    assert finite.tolist() == [b not in (2, 4) for b in range(Bsz)]
+    assert torch.equal(torch.isfinite(got).flatten(1).all(1), finite)
+    assert _rel_err(got[finite], want[finite]) < tol
 
 
 @pytest.mark.gpu
@@ -210,14 +258,7 @@ def test_hkd_kernel_copies_misaligned_operands(cuda, op, dtype):
     its kernel moves rows 16 bytes at a time)."""
     fn = HKD_OPS[op][0]
     args, _ = _hkd_args(cuda, op, dtype, HKD_CASES[0])
-
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
-    moved = [shifted(t) if torch.is_tensor(t) else t for t in args]
+    moved = [_shifted(t) if torch.is_tensor(t) else t for t in args]
     assert all(t.data_ptr() % 16 != 0 for t in moved if torch.is_tensor(t))
     got = fn(*moved)
     want = fn(*args)

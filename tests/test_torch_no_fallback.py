@@ -164,6 +164,31 @@ def test_sweep_refuses_widths_the_kernel_does_not_take(xs, us, dtype,
     assert sw.sweep.launches == before
 
 
+# (xs, dtype, devices that refuse): linroll's limits, those of the sweep
+# it runs beside: xs > 40 on every device, and rows that are not a
+# multiple of 16 bytes only where a kernel would run
+LINROLL_REFUSED = [(41, torch.float32, ("cpu", "meta")),
+                   (6, torch.float32, ("meta",)),
+                   (3, torch.float64, ("meta",))]
+
+
+@pytest.mark.parametrize("xs,dtype,devices", LINROLL_REFUSED)
+def test_linroll_refuses_widths_the_kernel_does_not_take(xs, dtype, devices):
+    """A width the kernel does not take raises and counts no launch; where
+    only the kernel refuses it, the CPU twin still answers."""
+    Bsz, N = 2, 3
+    args = (torch.zeros(Bsz, N, xs, xs, dtype=dtype),
+            torch.zeros(Bsz, N, xs, dtype=dtype), torch.zeros(Bsz, xs,
+                                                              dtype=dtype))
+    before = lr.linroll.launches
+    for device in devices:
+        with pytest.raises(ValueError, match="no kernel for xs="):
+            lr.linroll(*(a.to(device) for a in args))
+    if "cpu" not in devices:
+        assert lr.linroll(*args).shape == (Bsz, N, xs)
+    assert lr.linroll.launches == before
+
+
 def test_wrapper_rejects_bad_shapes():
     args = list(_sweep_args("cpu"))
     args[10] = args[10].to(torch.int64)
