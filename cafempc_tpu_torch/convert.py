@@ -1,12 +1,18 @@
-"""numpy <-> torch for plans, penalties, trajectories and solver results.
+"""numpy <-> torch for plans, penalties, trajectories, solver results and
+model constants.
 
 Both packages solve the same inputs: a plan, penalties and an initial
 trajectory built on the host in numpy go to the port with `from_numpy`,
 and any port result (a NamedTuple tree of tensors, e.g. `SolveResult`)
-comes back with `to_numpy` for comparison with the JAX package's.
+comes back with `to_numpy` for comparison with the JAX package's.  The
+whole-body models cross with `rbda_model_from_numpy` and
+`lane_model_from_numpy`, so that both packages can run one model edited in
+memory.
 """
 import numpy as np
 import torch
+
+from cafempc_tpu_torch.models import rbda
 
 
 def from_numpy(tree, device, dtype):
@@ -35,3 +41,21 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def rbda_model_from_numpy(m, device, dtype):
+    """The port's `rbda.RBDAModel` from the JAX package's RBDAModel whose
+    array leaves are numpy (e.g. `jax.tree.map(np.asarray, m)`)."""
+    return rbda.make_model(m.parent, m.jtype, m.axis, m.R_tree, m.p_tree,
+                           m.mass, m.com, m.inertia, m.frame_dof, m.frame_R,
+                           m.frame_p, m.has_mass, device, dtype)
+
+
+def lane_model_from_numpy(m, device, dtype):
+    """The port's lane model (an `rbda.RBDAModel`) from the JAX package's
+    WBLaneModel, whose leaves are numpy."""
+    mb = set(int(b) for b in m.mb_idx)
+    return rbda.make_model(m.parent, m.jtype, m.axis, m.R_tree, m.p_tree,
+                           m.mass, m.com, m.inertia, m.frame_dof, m.frame_R,
+                           m.frame_p, [b in mb for b in range(len(m.parent))],
+                           device, dtype)

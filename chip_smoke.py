@@ -30,6 +30,17 @@ Phases (one line of output each, unless noted):
      difference between the two solves;
   5. the MPC runtime: initialize + 5 updates at B=1, each fed the solver's
      own predicted state;
+  6. the whole-body and SRB model layer (`models/{rbda, wbm, wb_lane,
+     srb}`, plain PyTorch, no hand kernel) at the `mhpc` config's batch on
+     the synthetic quadruped: the WB linearization `wb_dyn_partials_lane`
+     on 256 x 25 knots, the WB step, the impulse partials on 256 x 4 reset
+     knots and the SRB partials on 256 x 10 tail knots, in f32 and f64;
+     checks: (a) the card against the CPU in f64 on 64 knots, (b) the
+     lane form against the per-knot `wbm` in f64, (c) the reference's
+     kinematics derivatives and (d) SRB derivatives from
+     `tests/fixtures/`, (e) f32 against f64; then the median ms per call,
+     knots/s, launches, device busy ms and idle share of one call, and the
+     phase's peak device memory (two lines);
 then the card's name and power limit, one JSON line of the kernels
 (`launches` each one's launches in phase 3's profiled solve, `ms` its
 device time per launch by torch.profiler, `event_ms` its CUDA-event time
@@ -40,16 +51,19 @@ non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from cafempc_tpu_torch import convert
-from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.models import hkd, rbda, srb, synthetic_robot, wb_lane
+from cafempc_tpu_torch.models import wbm
 from cafempc_tpu_torch.ops import _ext
 from cafempc_tpu_torch.ops import hkd_lq as hkd_lq_mod
 from cafempc_tpu_torch.ops import hkd_trial as hkd_trial_mod
@@ -494,17 +508,21 @@ def read_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def profile_solve(solve, args):
-    """One solve under torch.profiler: (kernel launches, other device ops
-    (copies, fills), device busy ms, wall ms, the five device ops with the
-    most time as (name, ms, count)), or None where the profiler saw no
-    device activity."""
+def profile_device(fn, host=True):
+    """fn() under torch.profiler, fn ending in a host fetch: (kernel
+    launches, other device ops (copies, fills), device busy ms, wall ms,
+    the five device ops with the most time as (name, ms, count)), or None
+    where the profiler saw no device activity.  host=False records the
+    device's activity only: for a call of thousands of small ops it costs
+    seconds less to read back and adds less to the wall."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        solve(*args).cost.cpu()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events()
@@ -520,6 +538,21 @@ def profile_solve(solve, args):
     top = sorted(((k[:48], ms, n) for k, (ms, n) in by_name.items()),
                  key=lambda t: -t[1])[:5]
     return len(dev) - len(copies), len(copies), busy, wall, top
+
+
+def profile_solve(solve, args):
+    """One solve under torch.profiler (profile_device)."""
+    return profile_device(lambda: solve(*args).cost.cpu())
+
+
+def profile_text(prof, what):
+    if prof is None:
+        return "profile: no device events seen (not measured)"
+    n_k, n_c, busy, wall, top = prof
+    return (f"profile of {what}: {n_k} kernel launches + {n_c} "
+            f"copies/fills, device busy {busy:.2f} ms of {wall:.2f} ms "
+            f"wall, idle share {1 - busy / wall:.3f}; most device time: "
+            + "; ".join(f"{name} {ms:.2f} ms x{n}" for name, ms, n in top))
 
 
 SOLVE_KW = dict(trim_output=True, parallel_line_search=False,
@@ -545,15 +578,7 @@ def phase_solve(label, tag, name, args, meta, hooks, want_kernels):
     per_solve = read_counts()
     med = statistics.median(ms)
     n_ok = int(success.sum())
-    if prof is None:
-        prof_txt = "profile: no device events seen (not measured)"
-    else:
-        n_k, n_c, busy, wall, top = prof
-        prof_txt = (f"profile of one solve: {n_k} kernel launches + {n_c} "
-                    f"copies/fills, device busy {busy:.2f} ms of "
-                    f"{wall:.2f} ms wall, idle share {1 - busy / wall:.3f}; "
-                    "most device time: " + "; ".join(
-                        f"{name} {ms:.2f} ms x{n}" for name, ms, n in top))
+    prof_txt = profile_text(prof, "one solve")
     print(f"[{tag}] hkd {name} ({len(meta['phases'])} phases, "
           f"{meta['n_knots']} knots), B={B} f32: "
           f"{B / (med / 1e3):.1f} solves/s, median {med:.2f} ms per batched "
@@ -640,6 +665,235 @@ def phase_runtime(label, x0):
           flush=True)
 
 
+# Phase 6: the WB and SRB model layer at the `mhpc` config's production
+# batch (the JAX package's bench.py:87-114 at its default B=256: 25 WB
+# knots and 10 SRB tail knots per scenario), with 4 reset knots per
+# scenario for the impulse partials
+WB_KNOTS = B * 25
+RESET_KNOTS = B * 4
+SRB_KNOTS = B * 10
+WB_DT, SRB_DT, BG_ALPHA = 0.01, 0.02, 10.0
+N_CHECK = 64        # knots held to the CPU and to the per-knot wbm in f64
+N_WB_TIMED = 5
+F32_TOL = 1e-3      # f32 against f64 on the card, A and B, normalized
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def wb_knot_data(n, seed):
+    """n seeded WB knots (numpy f64): q around the stance pose
+    [0, -0.8, 1.6] x 4 with the body's position and orientation spread
+    (the JAX package's tests/test_wb_lane.py:16-27), v, u, random contact
+    sets and dt."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n, 18))
+    q[:, 0:3] = rng.normal(0, 0.3, (n, 3))
+    q[:, 2] += 0.25
+    q[:, 3:6] = rng.normal(0, 0.4, (n, 3))
+    q[:, 6:] = np.tile([0.0, -0.8, 1.6], 4) + rng.normal(0, 0.4, (n, 12))
+    return dict(x=np.concatenate([q, rng.normal(0, 1.0, (n, 18))], 1),
+                u=rng.normal(0, 5.0, (n, 12)), dt=np.full(n, WB_DT),
+                c=(rng.random((n, 4)) > 0.4).astype(float))
+
+
+def srb_knot_data(n, seed):
+    """n seeded SRB knots (numpy f64): body state near standing height,
+    ground forces, feet around the stance footprint, contact sets."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.3, (n, 12))
+    x[:, 2] += 0.25
+    feet = np.tile([0.19, 0.11, 0.0, 0.19, -0.11, 0.0, -0.19, 0.11, 0.0,
+                    -0.19, -0.11, 0.0], (n, 1))
+    return dict(x=x, u=rng.normal(0, 30.0, (n, 12)),
+                pf=feet + rng.normal(0, 0.05, (n, 12)),
+                c=(rng.random((n, 4)) > 0.4).astype(float))
+
+
+def on(d, device, dtype, n=None):
+    return {k: torch.tensor(a[:n], device=device, dtype=dtype)
+            for k, a in d.items()}
+
+
+def wb_partials(m, d):
+    return wb_lane.wb_dyn_partials_lane(m, d["x"], d["u"], d["dt"], d["c"],
+                                        BG_ALPHA)
+
+
+def wb_step(m, d):
+    return wb_lane.wb_dynamics_lane(m, d["x"], d["u"], d["dt"], d["c"],
+                                    BG_ALPHA)
+
+
+def impulse_partials(m, d):
+    return wb_lane.impulse_dynamics_partials_lane(m, d["x"][:, :18],
+                                                  d["x"][:, 18:], d["c"])
+
+
+def srb_partials(d):
+    return srb.dynamics_partials(d["x"], d["u"], d["pf"], d["c"], SRB_DT)
+
+
+def rel_errors(got, want):
+    """Max |got - want| / max |want| of each pair (want on any device)."""
+    return [float((g.to(w.device, w.dtype) - w).abs().max()
+                  / max(float(w.abs().max()), 1e-30))
+            for g, w in zip(got, want)]
+
+
+def median_event_ms(fn, n):
+    """One warm-up call, then the median CUDA-event ms of n calls (each
+    synchronized)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return statistics.median(ms)
+
+
+def kin_fixture_checks(m):
+    """(foot_vel_dq, d(J^T F)/dq) of the synthetic robot on the card in f64
+    against the reference's generated derivatives: max abs errors."""
+    fix = np.load(os.path.join(ROOT, "tests", "fixtures",
+                               "wb_kin_derivs.npz"))
+    d = {k: torch.tensor(fix[k], device=DEVICE, dtype=torch.float64)
+         for k in ("q", "v", "F")}
+    dvdq = rbda.foot_vel_dq(m, d["q"], d["v"])
+    Fl = d["F"].unflatten(-1, (4, 3))[..., None]
+    djtf = rbda.batched_jacobian(
+        lambda q_: (rbda.foot_jacobians(m, q_) * Fl).sum(-2), d["q"])
+    return (float((dvdq.cpu() - torch.tensor(fix["dvdq"])).abs().max()),
+            float((djtf.cpu() - torch.tensor(fix["dJTFdq"])).abs().max()))
+
+
+def srb_fixture_check():
+    """srb.dynamics_partials_continuous on the card in f64 against the
+    reference's generated SRB derivatives: max abs error of Ac, Bc."""
+    fix = np.load(os.path.join(ROOT, "tests", "fixtures",
+                               "srb_dynamics.npz"))
+    args = [torch.tensor(fix[k], device=DEVICE, dtype=torch.float64)
+            for k in ("x", "u", "pf", "ctact")]
+    Ac, Bc = srb.dynamics_partials_continuous(*args)
+    return max(float((Ac.cpu() - torch.tensor(fix["Ac"])).abs().max()),
+               float((Bc.cpu() - torch.tensor(fix["Bc"])).abs().max()))
+
+
+def lane_models():
+    """The synthetic quadruped's model on the card in f32 and f64 and on
+    the CPU in f64, from a URDF written to a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = synthetic_robot.write_synthetic_quadruped_urdf(tmp)
+        models = {dt: wb_lane.load_lane_model(path, DEVICE, dt)
+                  for dt in (torch.float32, torch.float64)}
+        models["cpu"] = wb_lane.load_lane_model(path, "cpu", torch.float64)
+    return models
+
+
+def phase_models(label):
+    """Phase 6: the WB linearization on WB_KNOTS knots, the WB step, the
+    impulse partials on RESET_KNOTS and the SRB partials on SRB_KNOTS, in
+    f32 and f64 on the card; checks (a)-(e), then times and a profile."""
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    models = lane_models()
+    wb_np = wb_knot_data(WB_KNOTS, SEED + 6)
+    imp_np = wb_knot_data(RESET_KNOTS, SEED + 7)
+    srb_np = srb_knot_data(SRB_KNOTS, SEED + 8)
+    wb = {dt: on(wb_np, DEVICE, dt) for dt in (f32, f64)}
+    imp = {dt: on(imp_np, DEVICE, dt) for dt in (f32, f64)}
+    srbd = {dt: on(srb_np, DEVICE, dt) for dt in (f32, f64)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    out = {dt: wb_partials(models[dt], wb[dt]) for dt in (f32, f64)}
+    torch.cuda.synchronize()
+    # (a) the card against the CPU, f64, on the first N_CHECK knots
+    cpu = models["cpu"]
+    wb_c, imp_c, srb_c = (on(d, "cpu", f64, N_CHECK)
+                          for d in (wb_np, imp_np, srb_np))
+    wb_g, imp_g, srb_g = (on(d, DEVICE, f64, N_CHECK)
+                          for d in (wb_np, imp_np, srb_np))
+    err_a = {
+        "ABCD": rel_errors([o[:N_CHECK] for o in out[f64]],
+                           wb_partials(cpu, wb_c)),
+        "step": rel_errors(wb_step(models[f64], wb_g), wb_step(cpu, wb_c)),
+        "impulse": rel_errors(impulse_partials(models[f64], imp_g),
+                              impulse_partials(cpu, imp_c)),
+        "srb": rel_errors(srb_partials(srb_g), srb_partials(srb_c))}
+    worst_a = max(max(v) for v in err_a.values())
+    # (b) the lane form against the per-knot wbm on the card, f64
+    per_knot = wbm.dynamics_partials_analytic(
+        models[f64], wb_g["x"], wb_g["u"], WB_DT, wb_g["c"], BG_ALPHA)
+    err_b = [float((o[:N_CHECK] - w).abs().max())
+             for o, w in zip(out[f64], per_knot)]
+    ok_b = all(e <= tol for e, tol in zip(err_b, (1e-8, 1e-8, 1e-6, 1e-6)))
+    # (c), (d) the reference's fixtures on the card, f64
+    err_c = kin_fixture_checks(models[f64])
+    err_d = srb_fixture_check()
+    # (e) f32 against f64 on the card, all knots
+    finite = all(bool(torch.isfinite(o).all()) for o in out[f32])
+    err_e = rel_errors(out[f32], out[f64])
+    print(f"[6] checks, WB model layer on the synthetic quadruped "
+          f"(synthetic inertias): (a) card vs CPU f64 on {N_CHECK} knots, "
+          f"normalized: A,B,C,D "
+          + ", ".join(f"{e:.3e}" for e in err_a["ABCD"])
+          + "; step " + ", ".join(f"{e:.3e}" for e in err_a["step"])
+          + "; impulse " + ", ".join(f"{e:.3e}" for e in err_a["impulse"])
+          + "; srb " + ", ".join(f"{e:.3e}" for e in err_a["srb"])
+          + " (tol 1e-10); (b) lane vs per-knot wbm f64, max abs: "
+          + ", ".join(f"{e:.3e}" for e in err_b)
+          + " (tol 1e-8, 1e-8, 1e-6, 1e-6); (c) wb_kin_derivs: dvdq "
+          f"{err_c[0]:.3e}, dJTFdq {err_c[1]:.3e} (tol 1e-10); (d) "
+          f"srb_dynamics Ac/Bc {err_d:.3e} (tol 1e-10); (e) f32 vs f64 on "
+          f"{WB_KNOTS} knots, normalized: A {err_e[0]:.3e}, B "
+          f"{err_e[1]:.3e}, C {err_e[2]:.3e}, D {err_e[3]:.3e}, f32 finite "
+          f"{finite} (A, B tol {F32_TOL:g}) [{label}]", flush=True)
+    if not worst_a <= 1e-10:
+        fail(f"the card's f64 model layer disagrees with the CPU's: "
+             f"{worst_a:.3e}")
+    if not ok_b:
+        fail(f"the lane WB partials disagree with the per-knot wbm: {err_b}")
+    if not max(err_c) < 1e-10 or not err_d < 1e-10:
+        fail(f"the model layer misses the reference's fixtures: {err_c}, "
+             f"{err_d:.3e}")
+    if not (finite and max(err_e[:2]) <= F32_TOL):
+        fail(f"the f32 WB partials are not finite or too far from f64: "
+             f"{err_e}")
+
+    ms = {}
+    for dt in (f32, f64):
+        n = str(dt)[6:]
+        ms[f"wb_{n}"] = median_event_ms(
+            lambda: wb_partials(models[dt], wb[dt]), N_WB_TIMED)
+        ms[f"impulse_{n}"] = median_event_ms(
+            lambda: impulse_partials(models[dt], imp[dt]), N_WB_TIMED)
+        ms[f"srb_{n}"] = median_event_ms(lambda: srb_partials(srbd[dt]),
+                                         N_WB_TIMED)
+    prof = {dt: profile_device(lambda: wb_partials(models[dt], wb[dt]),
+                               host=False)
+            for dt in (f32, f64)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[6] WB/SRB model layer at the mhpc batch (B={B}): "
+          f"wb_dyn_partials_lane on {WB_KNOTS} knots, median CUDA-event ms "
+          f"per call over {N_WB_TIMED} calls: f32 {ms['wb_float32']:.2f} "
+          f"({WB_KNOTS / ms['wb_float32'] * 1e3:.0f} knots/s), f64 "
+          f"{ms['wb_float64']:.2f} ({WB_KNOTS / ms['wb_float64'] * 1e3:.0f} "
+          f"knots/s); impulse_dynamics_partials_lane on {RESET_KNOTS} "
+          f"knots f32 {ms['impulse_float32']:.2f}, f64 "
+          f"{ms['impulse_float64']:.2f} ms; srb.dynamics_partials on "
+          f"{SRB_KNOTS} knots f32 {ms['srb_float32']:.2f}, f64 "
+          f"{ms['srb_float64']:.2f} ms; f32 "
+          + profile_text(prof[f32], "one WB call") + "; f64 "
+          + profile_text(prof[f64], "one WB call")
+          + f"; peak device memory over the phase "
+          f"{peak:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{label}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -650,7 +904,6 @@ def main():
     label = card()
     print(f"[0] card: {label}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-
     so, build_s, log = _ext.build(force=True)
     print(f"[1] built {so.name} with nvcc for sm_90a in {build_s:.1f} s; "
           + " | ".join(l.strip() for l in log.splitlines()
@@ -664,6 +917,7 @@ def main():
     launches = phase_solves(label)
     args, _ = bench_problem(torch.float64)
     phase_runtime(label, args[2][0].cpu().numpy())
+    phase_models(label)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each against its plain twin, and a small
-HKD solve through the kernels against the same solve through the twins.
+HKD solve through the kernels against the same solve through the twins;
+the whole-body and SRB model layer on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it runs on a machine without it:
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from cafempc_tpu_torch.convert import from_numpy
-from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.models import hkd, srb, synthetic_robot, wb_lane, wbm
 from cafempc_tpu_torch.ops import hkd_lq as hl
 from cafempc_tpu_torch.ops import hkd_trial as ht
 from cafempc_tpu_torch.ops import linroll as lr
@@ -332,3 +333,113 @@ def test_solve_through_all_four_kernels_matches_twins(cuda):
     want = solver(True)(*args)
     assert [f.launches for f in fns] == after
     _same_solve(got, want)
+
+
+# ---- the whole-body and SRB model layer (plain PyTorch) ---------------
+
+def _wb_knots(n, seed=41):
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n, 18))
+    q[:, 2] = 0.25 + rng.normal(0, 0.05, n)
+    q[:, 3:6] = rng.normal(0, 0.3, (n, 3))
+    q[:, 6:] = np.tile([0.0, -0.8, 1.6], 4) + rng.normal(0, 0.3, (n, 12))
+    return dict(x=np.concatenate([q, rng.normal(0, 1.0, (n, 18))], 1),
+                u=rng.normal(0, 5.0, (n, 12)), dt=np.full(n, 0.01),
+                c=(rng.random((n, 4)) > 0.4).astype(float))
+
+
+def _srb_knots(n, seed=43):
+    rng = np.random.default_rng(seed)
+    return dict(x=rng.normal(0, 0.3, (n, 12)), u=rng.normal(0, 30.0, (n, 12)),
+                pf=rng.normal(0, 0.2, (n, 12)),
+                c=(rng.random((n, 4)) > 0.4).astype(float))
+
+
+def _on(d, device, dtype):
+    return {k: torch.as_tensor(a, device=device, dtype=dtype)
+            for k, a in d.items()}
+
+
+@pytest.fixture(scope="module")
+def robot(tmp_path_factory):
+    return synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp_path_factory.mktemp("robot")))
+
+
+def _wb_partials(device, dtype, robot, d):
+    m = wb_lane.load_lane_model(robot, device, dtype)
+    d = _on(d, device, dtype)
+    return (*wb_lane.wb_dyn_partials_lane(m, d["x"], d["u"], d["dt"],
+                                          d["c"], 10.0),
+            *wb_lane.impulse_dynamics_partials_lane(m, d["x"][:, :18],
+                                                    d["x"][:, 18:], d["c"]))
+
+
+def _srb_partials(device, dtype, d):
+    d = _on(d, device, dtype)
+    return srb.dynamics_partials(d["x"], d["u"], d["pf"], d["c"], 0.02)
+
+
+# (dtype, tolerance on the card's error normalized by the CPU f64 result's
+# max |value|): f32 against f64 loses what the KKT's conditioning costs
+MODEL_DTYPES = [(torch.float32, 1e-3), (torch.float64, 1e-10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", MODEL_DTYPES)
+def test_wb_partials_on_card_match_cpu(cuda, robot, dtype, tol):
+    """The WB linearization (A, B, C, D) and the impulse partials of 16
+    knots on the card against the same knots in f64 on the CPU."""
+    d = _wb_knots(16)
+    got = _wb_partials(cuda, dtype, robot, d)
+    want = _wb_partials("cpu", torch.float64, robot, d)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(g.cpu().double(), w) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_srb_partials_on_card_match_cpu(cuda, dtype, tol):
+    d = _srb_knots(32)
+    for g, w in zip(_srb_partials(cuda, dtype, d),
+                    _srb_partials("cpu", torch.float64, d)):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert _rel_err(g.cpu().double(), w) < tol
+
+
+@pytest.mark.gpu
+def test_wbm_model_lives_on_the_card(cuda, robot):
+    """Every tensor leaf of a model loaded for the card is on the card, at
+    the asked dtype where it is floating."""
+    m = wbm.load_model(robot, device="cuda", dtype=torch.float32)
+    leaves = [f for f in m if torch.is_tensor(f)]
+    assert leaves and all(t.device.type == "cuda" for t in leaves)
+    assert all(t.dtype == torch.float32 for t in leaves
+               if t.is_floating_point())
+
+
+@pytest.mark.gpu
+def test_model_layer_never_moves_to_the_cpu(cuda, robot, monkeypatch):
+    """The entry points called with CUDA tensors never take a tensor to
+    the host: Tensor.cpu and Tensor.numpy raise while they run."""
+    wd, sd = _wb_knots(4), _srb_knots(4)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor went to the host")
+
+    m = wbm.load_model(robot, device="cuda", dtype=torch.float64)
+    d = _on(wd, cuda, torch.float64)
+    s = _on(sd, cuda, torch.float64)
+    monkeypatch.setattr(torch.Tensor, "cpu", refuse)
+    monkeypatch.setattr(torch.Tensor, "numpy", refuse)
+    wb_lane.wb_dyn_partials_lane(m, d["x"], d["u"], d["dt"], d["c"], 10.0)
+    wb_lane.wb_dynamics_lane(m, d["x"], d["u"], d["dt"], d["c"], 10.0)
+    wb_lane.impulse_dynamics_partials_lane(m, d["x"][:, :18], d["x"][:, 18:],
+                                           d["c"])
+    wbm.dynamics_partials_analytic(m, d["x"], d["u"], 0.01, d["c"])
+    wbm.impact_partial_analytic(m, d["x"], d["c"], 1.0 - d["c"])
+    srb.dynamics_partials(s["x"], s["u"], s["pf"], s["c"], 0.02)
+    torch.cuda.synchronize()

@@ -15,6 +15,12 @@ MODULES = [
     "cafempc_tpu_torch.solver.penalty",
     "cafempc_tpu_torch.solver.hsddp",
     "cafempc_tpu_torch.models.hkd",
+    "cafempc_tpu_torch.models.urdf",
+    "cafempc_tpu_torch.models.synthetic_robot",
+    "cafempc_tpu_torch.models.rbda",
+    "cafempc_tpu_torch.models.wbm",
+    "cafempc_tpu_torch.models.wb_lane",
+    "cafempc_tpu_torch.models.srb",
     "cafempc_tpu_torch.reference.gait",
     "cafempc_tpu_torch.reference.quad_reference",
     "cafempc_tpu_torch.reference.synthetic",
@@ -22,6 +28,10 @@ MODULES = [
     "cafempc_tpu_torch.ops._ext",
     "cafempc_tpu_torch.ops.sweep",
     "cafempc_tpu_torch.ops.linroll",
+    "cafempc_tpu_torch.ops.hkd_table",
+    "cafempc_tpu_torch.ops.hkd_lq",
+    "cafempc_tpu_torch.ops.hkd_trial",
+    "cafempc_tpu_torch.problems.hkd_fused",
     "cafempc_tpu_torch.parallel.mesh",
     "cafempc_tpu_torch.runtime.warm_start",
     "cafempc_tpu_torch.runtime.mpc",
