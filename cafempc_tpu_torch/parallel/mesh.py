@@ -15,18 +15,20 @@ def make_batched_solver(fns, opts, *, all_shooting=True, mesh=None,
                         fused_lq=None, **solver_kwargs):
     """Returns solve_batch(plan, pen_b, x0_b, Xbar_b, Ubar_b), the same
     call as the JAX package's: plan shared, the rest with a leading
-    scenario dim.  The keyword arguments name the JAX configuration; the
-    port runs all-shooting, trimmed output, sequential line search and the
-    fused sweep and linear rollout, and raises for a variant it has not
-    ported.  `fused_forward` and `fused_lq` (e.g. the HKD hooks of
-    problems/hkd_fused.py) go to make_solver."""
-    if not (all_shooting and trim_output and fused_riccati) \
+    scenario dim.  `fns` is a ProblemFns or a SegmentedFns.  The keyword
+    arguments name the JAX configuration; the port runs all-shooting,
+    sequential line search and the fused sweep and linear rollout, and
+    raises for a variant it has not ported.  trim_output=False returns the
+    final SolverState; `fused_forward` and `fused_lq` (e.g. the HKD hooks
+    of problems/hkd_fused.py) go to make_solver."""
+    if not (all_shooting and fused_riccati) \
             or parallel_line_search or mesh is not None:
         raise NotImplementedError(
-            "ported: all_shooting=True, trim_output=True, "
-            "parallel_line_search=False, fused_riccati=True, mesh=None")
+            "ported: all_shooting=True, parallel_line_search=False, "
+            "fused_riccati=True, mesh=None")
     return make_solver(fns, opts, fused_forward=fused_forward,
-                       fused_lq=fused_lq, **solver_kwargs)
+                       fused_lq=fused_lq, trim_output=trim_output,
+                       **solver_kwargs)
 
 
 def broadcast_batch(tree, batch):

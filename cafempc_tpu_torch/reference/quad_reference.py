@@ -1,5 +1,5 @@
 """Quadruped reference-trajectory management (numpy only; counterpart of
-`cafempc_tpu/reference/quad_reference.py`, HKD queries only).
+`cafempc_tpu/reference/quad_reference.py`: the HKD, WB and SRB queries).
 
 Loads the keyed-line `quad_reference.csv` format of the reference stack
 (QuadReference.cpp:134-356) into a struct-of-arrays numpy store, and
@@ -124,6 +124,12 @@ class QuadReference:
             if self.k_cur + self.sz + 1 >= len(self.tp):
                 raise IndexError("Out of scope of the top-level data")
 
+    def get_start_time(self):
+        return self.t_cur
+
+    def get_end_time(self):
+        return self.t_cur + self.dur
+
     def _k(self, t):
         k = int(np.floor(t / self.dt + 1e-9))
         if t - k * self.dt > 0.5 * self.dt:
@@ -131,6 +137,10 @@ class QuadReference:
         if k >= self.sz:
             k = self.sz - 1
         return self.k_cur + k
+
+    def at_t(self, t, field):
+        """Query one field at window-relative time t."""
+        return getattr(self.tp, field)[self._k(t)]
 
     def contact_at_t(self, t):
         return self.tp.contact[self._k(t)]
@@ -166,3 +176,16 @@ def hkd_control_ref_at(quad_ref: QuadReference, t):
     """[grf, qJd] control reference (HKDReference.cpp:8-17)."""
     r = quad_ref.record_at_t(t)
     return np.concatenate([r["grf"], r["qJd"]])
+
+
+def wb_state_ref_at(quad_ref: QuadReference, t):
+    """WB 36-dim state reference [pos, eul, qJ, vel, eulrate, qJd]
+    (MHPCReference.cpp:25-42)."""
+    r = quad_ref.record_at_t(t)
+    bs = r["body_state"]
+    return np.concatenate([bs[0:6], r["qJ"], bs[6:12], r["qJd"]])
+
+
+def srb_state_ref_at(quad_ref: QuadReference, t):
+    """SRB 12-dim state reference = body_state (MHPCReference.cpp:63-77)."""
+    return quad_ref.record_at_t(t)["body_state"].copy()

@@ -15,7 +15,11 @@ needs the whole-body model, with two substitutions:
 
 The result is in HKD (Cheetah-Software) leg order FR, FL, HR, HL with
 `qJd` zero, as `load_quad_reference(..., reorder=True)` would return it.
+`synthetic_bound_reference_urdf` returns the same gait in urdf leg order
+FL, FR, HL, HR, as the MHPC cascade reads the CSV (without `reorder`).
 """
+import dataclasses
+
 import numpy as np
 
 from cafempc_tpu_torch.models import hkd
@@ -150,3 +154,15 @@ def synthetic_bound_reference(duration=2.0, vx=0.5, z=0.25,
         foot_heights=data["foot_placements"][:, 2::3].copy(),
         grf=data["grf"], torque=np.zeros((n_rec, 12)),
         contact=data["contact"], status_dur=data["status_dur"])
+
+
+def synthetic_bound_reference_urdf(duration=2.0, **kwargs):
+    """`synthetic_bound_reference` put back into urdf leg order (FL, FR,
+    HL, HR): the reference the MHPC cascade reads.  The leg swaps are their
+    own inverse."""
+    ref = synthetic_bound_reference(duration=duration, **kwargs)
+    return dataclasses.replace(
+        ref, qJ=flip12(ref.qJ), foot_placements=flip12(ref.foot_placements),
+        foot_velocities=flip12(ref.foot_velocities), grf=flip12(ref.grf),
+        torque=flip12(ref.torque), foot_heights=flip4(ref.foot_heights),
+        contact=flip4(ref.contact), status_dur=flip4(ref.status_dur))

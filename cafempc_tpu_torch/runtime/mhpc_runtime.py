@@ -1,0 +1,205 @@
+"""Receding-horizon MPC runtime for the cascaded MHPC problem (port of
+`cafempc_tpu/runtime/mhpc_runtime.py`: `initialize`, `update`, the command
+tape).
+
+Functional equivalent of the reference MHPCLocomotion
+(MHPC/MHPCLocomotion.cpp): initialize() does the full-cap solve; update()
+steps the reference window by dt, rebuilds the flat cascaded plan on the
+host (the reference's update_WB_plan/update_SRB_plan deque surgery,
+MHPCProblem.cpp:252-397), warm-starts from the previous solution by
+absolute knot time (`runtime/warm_start.py`) and re-solves at the runtime
+iteration caps.  `command_tape()` is publish_mpc_cmd's 8-step tape
+(MHPCLocomotion.cpp:190-287): x, tau, GRF, Qu, Quu, Qux and the feedback
+K of the first WB dynamics steps, the matrices flattened column-major as
+the reference's Eigen .data() copies are.
+
+The runtime takes the robot (a `wbm` model or a URDF path); the JAX
+runtime always loads the default URDF (mhpc_runtime.py:52).  Solver
+configuration: the JAX runtime compiles `make_solver` with its defaults
+(parallel line search, lax.scan sweep); the port runs the sequential line
+search and the sweep and linear-rollout kernels, which the JAX package
+pins as the same solve.  Not ported: `serve`, the LCM messages and the
+intermediate-trajectory callback.
+"""
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from cafempc_tpu_torch.convert import from_numpy, to_numpy
+from cafempc_tpu_torch.models import wbm
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.runtime.warm_start import time_aligned_warm_start
+from cafempc_tpu_torch.solver.hsddp import make_solver
+from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.solver.plan import host_plan_to_device
+
+
+@dataclasses.dataclass
+class MHPCCommandTape:
+    """MHPC_Command_lcmt's fields (MHPCLocomotion.cpp:190-287) as numpy
+    arrays, one row per commanded step; Quu, Qux and feedback flattened
+    column-major."""
+    mpc_times: np.ndarray      # [n]
+    torque: np.ndarray         # [n, 12]
+    pos: np.ndarray            # [n, 3]
+    eul: np.ndarray            # [n, 3]
+    qJ: np.ndarray             # [n, 12]
+    vWorld: np.ndarray         # [n, 3]
+    eulrate: np.ndarray        # [n, 3]
+    qJd: np.ndarray            # [n, 12]
+    GRF: np.ndarray            # [n, 12]
+    feedback: np.ndarray       # [n, 12 * 36]
+    Qu: np.ndarray             # [n, 12]
+    Quu: np.ndarray            # [n, 12 * 12]
+    Qux: np.ndarray            # [n, 12 * 36]
+    contacts: np.ndarray       # [n, 4] int32
+    statusTimes: np.ndarray    # [n, 4]
+
+
+# the solver arrays the runtime keeps of each solve (scenario 0), host-side
+_KEPT = ("Xbar", "Ubar", "Y", "K", "Qu", "Quu", "Qux")
+
+
+class MHPCRuntime:
+    def __init__(self, quad_ref: QuadReference, cfg: mp.MHPCConfig,
+                 opts: SolverOptions, model=None, urdf_path=None,
+                 device="cuda", dtype=torch.float64, n_cmd_steps=8,
+                 max_resets=8, foot_handoff=False):
+        """model: the whole-body model (`wbm.load_model`) at `device` and
+        `dtype`, or urdf_path to load it from; max_resets: reset steps
+        gathered per segment; foot_handoff: freeze the solved WB foot XY
+        into the SRB tail for feet in stance at the handoff
+        (MHPCFootStep.h:26-57, opt-in, see
+        mhpc_problem.apply_transition_foot_handoff)."""
+        if model is None:
+            if urdf_path is None:
+                raise ValueError("MHPCRuntime needs the robot: a wbm model "
+                                 "or a URDF path")
+            model = wbm.load_model(urdf_path, device, dtype)
+        self.qr = quad_ref
+        self.cfg = mp._default_weights(cfg)
+        self.model = model
+        self.device = device
+        self.dtype = dtype
+        self.n_cmd_steps = n_cmd_steps
+        self.foot_handoff = foot_handoff
+        # without an SRB tail every step is a WB step, and the WB functions
+        # are the JAX joint mode's on such a plan
+        fns = (mp.make_mhpc_fns_segmented(cfg, model) if cfg.plan_dur_srb > 0
+               else mp.make_mhpc_fns(cfg, model, "wb"))
+        kw = dict(max_resets=max_resets, trim_output=False)
+        self.solve_init = make_solver(fns, opts, **kw)
+        self.solve_rt = make_solver(fns, opts.runtime(), **kw)
+        self.mpc_time = 0.0
+        self.result = None        # dict of scenario 0's kept solver arrays
+        self.plan_np = None
+        self.meta = None
+        self.guess = None         # (Xbar0, Ubar0) the last solve started from
+        # solve-time telemetry (MHPCLocomotion.cpp:134-142), milliseconds;
+        # timing: the last step's host plan build (with the warm start and
+        # the copy to the device), solve and fetch
+        self.last_solve_ms = 0.0
+        self.avg_solve_ms = 0.0
+        self.max_solve_ms = 0.0
+        self.timing = {}
+        self._n_solves = 0
+
+    # ---------------- solve ------------------------------------------
+    def _sync(self):
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def _solve(self, solve, t_build, plan_np, pen_np, x0, Xbar0, Ubar0):
+        """One B=1 solve of host inputs; the solve time covers the device
+        solve and the fetch of its result."""
+        plan = host_plan_to_device(plan_np, self.device, self.dtype)
+        pen = host_plan_to_device(pen_np, self.device, self.dtype)
+        pen = type(pen)(*[a[None] for a in pen])
+        batch = [from_numpy(np.asarray(a)[None], self.device, self.dtype)
+                 for a in (x0, Xbar0, Ubar0)]
+        self._sync()
+        t0 = time.perf_counter()
+        s = solve(plan, pen, *batch)
+        self._sync()
+        t1 = time.perf_counter()
+        tr = s.traj
+        res = {k: to_numpy(getattr(tr, k)[0]) for k in _KEPT}
+        res.update({k: to_numpy(getattr(s, k)[0]) for k in (
+            "cost", "feas", "max_pconstr", "max_tconstr", "success")})
+        res["info"] = type(s.info)(*[to_numpy(a[0]) for a in s.info])
+        t2 = time.perf_counter()
+        self.result = res
+        self.guess = (Xbar0, Ubar0)
+        self.timing = dict(build_ms=(t0 - t_build) * 1e3,
+                           solve_ms=(t1 - t0) * 1e3, fetch_ms=(t2 - t1) * 1e3)
+        self._record_solve_time(t0)
+
+    def _record_solve_time(self, t0):
+        self.last_solve_ms = (time.perf_counter() - t0) * 1e3
+        self._n_solves += 1
+        self.avg_solve_ms += (self.last_solve_ms - self.avg_solve_ms) \
+            / self._n_solves
+        self.max_solve_ms = max(self.max_solve_ms, self.last_solve_ms)
+
+    # ---------------- MPC steps --------------------------------------
+    def initialize(self, x0):
+        t_build = time.perf_counter()
+        plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(self.qr,
+                                                                 self.cfg)
+        self._solve(self.solve_init, t_build, plan_np, pen_np, x0, Xbar0,
+                    Ubar0)
+        self.plan_np, self.meta = plan_np, meta
+        return self.command_tape()
+
+    def update(self, x_meas, dt=None):
+        """One re-solve at the measured state; dt is the elapsed MPC time
+        since the previous solve (default dt_mpc)."""
+        t_build = time.perf_counter()
+        dt = self.cfg.dt_mpc if dt is None else dt
+        self.qr.step(dt)
+        self.mpc_time += dt
+        plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(self.qr,
+                                                                 self.cfg)
+        Xb, Ub = time_aligned_warm_start(
+            self.plan_np.knot, self.mpc_time - dt, self.result["Xbar"],
+            self.result["Ubar"], plan_np.knot, self.mpc_time, Xbar0, Ubar0)
+        if self.foot_handoff and meta["srb_horizon"] > 0:
+            # state entering the WB->SRB model-switch reset (warm-started)
+            mp.apply_transition_foot_handoff(
+                plan_np, self.cfg, Xb[self.cfg.wb_block - 1], self.model)
+        self._solve(self.solve_rt, t_build, plan_np, pen_np, x_meas, Xb, Ub)
+        self.plan_np, self.meta = plan_np, meta
+        return self.command_tape()
+
+    # ---------------- outputs ----------------------------------------
+    def command_tape(self):
+        """The first n_cmd_steps WB dynamics steps of the solution
+        (MHPCLocomotion.cpp:190-287)."""
+        st = self.plan_np.step
+        r = self.result
+        wb = (st.active > 0) & (st.is_reset == 0) & (st.model_id == 0)
+        idx = np.nonzero(wb)[0][:self.n_cmd_steps]
+        n = len(idx)
+        X = r["Xbar"][idx]
+
+        def colmajor(M):
+            return M[idx].transpose(0, 2, 1).reshape(n, -1)
+
+        # statusTimes[k]: contact durations of the WB phase owning step k
+        # (MHPCLocomotion.cpp:264)
+        status = np.zeros((n, 4))
+        for ii, k in enumerate(idx):
+            for (ts, te, _, _) in self.meta["wb_phases"]:
+                if ts - 1e-9 <= st.t[k] < te - 1e-9:
+                    status[ii] = self.qr.contact_duration_at_t(ts)
+                    break
+        return MHPCCommandTape(
+            mpc_times=self.mpc_time + st.t[idx], torque=r["Ubar"][idx],
+            pos=X[:, 0:3], eul=X[:, 3:6], qJ=X[:, 6:18], vWorld=X[:, 18:21],
+            eulrate=X[:, 21:24], qJd=X[:, 24:36], GRF=r["Y"][idx],
+            feedback=colmajor(r["K"]), Qu=r["Qu"][idx],
+            Quu=colmajor(r["Quu"]), Qux=colmajor(r["Qux"]),
+            contacts=st.contact[idx].astype(np.int32), statusTimes=status)

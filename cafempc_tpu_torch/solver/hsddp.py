@@ -6,10 +6,12 @@ function takes the whole batch: per-scenario tensors carry a leading
 dimension B, plan tensors (shared by all scenarios) carry none.  The path
 ported is the one `make_solver(all_shooting=True, trim_output=...,
 parallel_line_search=False, fused_riccati=True, max_resets=R,
-reg_floor=...)` runs:
+reg_floor=...)` runs, for a `ProblemFns` or a `SegmentedFns`:
 
   * all-shooting rollout with the reset map evaluated only at the gathered
-    reset sites (`max_resets`);
+    reset sites (`max_resets` per segment);
+  * for `SegmentedFns` (a cascaded plan), every problem function runs on
+    its own segment's steps and knots only, the outputs concatenated;
   * generic LQ approximation from the problem's closed-form partials, or
     a problem's fused LQ hook (`fused_lq`);
   * Riccati backward sweep through `ops.sweep` (the hand CUDA kernel on
@@ -54,6 +56,21 @@ class ProblemFns(NamedTuple):
     path_con_partials: Callable   # (X, U, Y, sd) -> (gx, gu, gy)
     term_con: Callable            # (X, kd) -> h [B, n, n_tcon]
     term_con_partials: Callable   # (X, kd) -> hx [B, n, n_tcon, xs]
+
+
+class SegmentedFns(NamedTuple):
+    """Static per-segment problem functions for cascaded plans.
+
+    Segment i owns steps [sum(counts[:i]), sum(counts[:i+1])) of the flat
+    plan and the matching knots; the last segment also owns the final
+    knot.  The solver runs each segment's functions on its own slice only,
+    so one model's dynamics and partials are never evaluated on the
+    other's knots (the reference's per-phase LQ touches only its own model,
+    SinglePhase.cpp:265-320).  Requires a plan that puts each model's steps
+    at static offsets (mhpc_problem.build_mhpc_plan's carry-pad layout).
+    """
+    counts: tuple   # ints, sum == n_steps
+    fns: tuple      # ProblemFns per segment
 
 
 class TrajState(NamedTuple):
@@ -142,22 +159,67 @@ def init_traj(plan: KnotPlan, xs, us, ys, Xbar0, Ubar0):
 
 
 class _ResetSites(NamedTuple):
-    """Gathered reset steps of a plan (shared by the whole batch)."""
-    idx: torch.Tensor       # [R] step indices, padded with 0
+    """Gathered reset steps of one segment of a plan (shared by the whole
+    batch)."""
+    fns: ProblemFns         # the segment's problem functions
+    idx: torch.Tensor       # [R] plan step indices, padded with the
+    #                         segment's first step
     valid: torch.Tensor     # [R] bool, False on padding entries
     sd: StepData            # the StepData rows at idx
 
 
-def reset_sites(plan: KnotPlan, max_resets):
-    """The first `max_resets` reset steps, as
-    `jnp.nonzero(is_reset > 0, size=max_resets, fill_value=0)` picks them
-    (hsddp.py:446-457): padded with index 0, masked by `valid`."""
-    is_r = plan.step.is_reset
-    idx = torch.nonzero(is_r > 0).flatten()[:max_resets]
-    pad = idx.new_zeros(max_resets - idx.shape[0])
-    idx = torch.cat([idx, pad])
-    return _ResetSites(idx, is_r[idx] > 0,
-                       StepData(*[a[idx] for a in plan.step]))
+def _segments(fns, n_steps):
+    """[(offset, count, ProblemFns)] of the plan's segments: one for a
+    ProblemFns, one per segment of a SegmentedFns."""
+    if not isinstance(fns, SegmentedFns):
+        return [(0, n_steps, fns)]
+    counts = [int(c) for c in fns.counts]
+    if sum(counts) != n_steps or len(counts) != len(fns.fns) \
+            or min(counts) < 1:
+        raise ValueError(f"SegmentedFns: counts {counts} must be positive, "
+                         f"one per segment, and sum to the plan's "
+                         f"{n_steps} steps")
+    offsets = [sum(counts[:i]) for i in range(len(counts))]
+    return list(zip(offsets, counts, fns.fns))
+
+
+def reset_sites(plan: KnotPlan, max_resets, fns):
+    """Per segment of `fns`, its first `max_resets` reset steps, as
+    `jnp.nonzero(is_reset[o:o+n] > 0, size=max_resets, fill_value=0)` picks
+    them (hsddp.py:446-457): padded with the segment's first step, masked by
+    `valid`."""
+    sites = []
+    for o, cnt, f in _segments(fns, plan.n_steps):
+        is_r = plan.step.is_reset[o:o + cnt]
+        idx = torch.nonzero(is_r > 0).flatten()[:max_resets]
+        idx = torch.cat([idx, idx.new_zeros(max_resets - idx.shape[0])])
+        sites.append(_ResetSites(f, idx + o, is_r[idx] > 0,
+                                 StepData(*[a[o + idx] for a in plan.step])))
+    return sites
+
+
+def _fan_out(fns, attr, n_steps, n_extra=0):
+    """The problem function `attr` over the whole plan: for a ProblemFns the
+    function itself; for a SegmentedFns each segment's function on its own
+    slice (per-scenario tensors [B, n, ...] along dim 1, the plan slice,
+    the last argument, along dim 0), the outputs concatenated.  n_extra=1
+    for per-knot functions: the last segment also owns the final knot."""
+    if not isinstance(fns, SegmentedFns):
+        return getattr(fns, attr)
+    segs = _segments(fns, n_steps)
+
+    def apply(*args):
+        *xs, pd = args
+        outs = []
+        for i, (o, cnt, f) in enumerate(segs):
+            c = cnt + (n_extra if i == len(segs) - 1 else 0)
+            outs.append(getattr(f, attr)(
+                *[a[:, o:o + c] for a in xs],
+                type(pd)(*[a[o:o + c] for a in pd])))
+        if torch.is_tensor(outs[0]):
+            return torch.cat(outs, 1)
+        return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+    return apply
 
 
 INFO_LEN = 64   # entries of the per-iteration telemetry buffers
@@ -178,15 +240,22 @@ def _per_lane(v):
     return v[:, None, None] if v.dim() == 1 else v[:, None, :]
 
 
-def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
+def make_solver(fns, opts: SolverOptions, *, max_resets=16,
                 reg_floor=0.0, plain_ops=False, fused_forward=None,
-                fused_lq=None):
-    """Build ``solve(plan, pen, x0, Xbar0, Ubar0) -> SolveResult`` over a
-    batch (the JAX package's `trim_output=True` output).
+                fused_lq=None, trim_output=True):
+    """Build ``solve(plan, pen, x0, Xbar0, Ubar0)`` over a batch: a
+    `SolveResult` (the JAX package's `trim_output=True` output), or with
+    trim_output=False the final `SolverState` (whose traj carries, e.g.,
+    the output trajectory Y that the MHPC command tape reads).
+
+    fns: a ProblemFns, or a SegmentedFns for cascaded plans with a static
+    per-model step layout (each segment's functions see only its steps and
+    knots, and reset sites are gathered per segment).
 
     plan: KnotPlan of unbatched tensors; pen: PenaltyParams with a leading
     scenario dim B; x0 [B, xs]; Xbar0 [B, N+1, xs]; Ubar0 [B, N, us].
-    max_resets: cap on the reset steps the reset map is evaluated at.
+    max_resets: cap on the reset steps the reset map is evaluated at, per
+    segment.
     reg_floor: minimum regularization of every backward sweep attempt
     (0.0 = the reference schedule, MultiPhaseDDP.cpp:136-165).
     plain_ops: run the plain PyTorch twins of every kernel (the sweep, the
@@ -209,6 +278,9 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
     if not (opts.MS and max_resets):
         raise ValueError("the port runs the all-shooting multiple-shooting "
                          "configuration with gathered resets (max_resets)")
+    if isinstance(fns, SegmentedFns) and (fused_forward or fused_lq):
+        raise ValueError("the fused hooks replace the problem functions of "
+                         "the whole plan; SegmentedFns takes neither")
     sweep_fn = sweep_mod.sweep_reference if plain_ops else sweep_mod.sweep
     linroll_fn = (linroll_mod.linroll_reference if plain_ops
                   else linroll_mod.linroll)
@@ -218,14 +290,16 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         """All-shooting hybrid rollout at per-scenario step eps [B]
         (SinglePhase.cpp:182-233 + MultiPhaseDDP.cpp:49-92 flattened)."""
         sd, kd = plan.step, plan.knot
+        N = plan.n_steps
         e = eps[:, None, None]
         X = tr.Xbar + e * tr.dX
         dx = X[:, :-1] - tr.Xbar[:, :-1]
         U = tr.Ubar + e * tr.dU + _mv(tr.K, dx)
-        Xn, Y = fns.dyn(X[:, :-1], U, sd)
-        xr = fns.reset(X[:, sites.idx], sites.sd)
-        rows = torch.where(sites.valid[:, None], xr, Xn[:, sites.idx])
-        Xn = Xn.index_copy(1, sites.idx, rows)
+        Xn, Y = _fan_out(fns, "dyn", N)(X[:, :-1], U, sd)
+        for st in sites:
+            xr = st.fns.reset(X[:, st.idx], st.sd)
+            rows = torch.where(st.valid[:, None], xr, Xn[:, st.idx])
+            Xn = Xn.index_copy(1, st.idx, rows)
         Xn = torch.where(sd.active[:, None] > 0, Xn, X[:, 1:])
         Xsim = torch.cat([x0[:, None], Xn], dim=1)
         ka = kd.active[:, None]
@@ -242,10 +316,11 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         Xs = tr.X[:, :-1]
         run_mask = sd.active * (1.0 - sd.is_reset)
         term_mask = kd.active * kd.is_terminal
-        l = fns.run_cost(Xs, tr.U, tr.Y, sd)
-        g = fns.path_con(Xs, tr.U, tr.Y, sd)
-        h = fns.term_con(tr.X, kd)
-        phi = fns.term_cost(tr.X, kd)
+        N = plan.n_steps
+        l = _fan_out(fns, "run_cost", N)(Xs, tr.U, tr.Y, sd)
+        g = _fan_out(fns, "path_con", N)(Xs, tr.U, tr.Y, sd)
+        h = _fan_out(fns, "term_con", N, 1)(tr.X, kd)
+        phi = _fan_out(fns, "term_cost", N, 1)(tr.X, kd)
         cq = torch.sum(l * run_mask, 1) + torch.sum(phi * term_mask, 1)
         return cq, g, h
 
@@ -292,25 +367,26 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
     def lq_approx(plan, sites, pen, tr: TrajState):
         """(SinglePhase.cpp:265-320), all knots and scenarios at once."""
         sd, kd = plan.step, plan.knot
+        N = plan.n_steps
         Xs = tr.X[:, :-1]
-        A, B, C, D = fns.dyn_partials(Xs, tr.U, sd)
-        P = fns.reset_partial(tr.X[:, sites.idx], sites.sd)
-        vm = sites.valid[:, None, None]
-        A = A.index_copy(1, sites.idx,
-                         torch.where(vm, P, A[:, sites.idx]))
-        B = B.index_copy(1, sites.idx,
-                         torch.where(vm, 0.0, B[:, sites.idx]))
+        A, B, C, D = _fan_out(fns, "dyn_partials", N)(Xs, tr.U, sd)
+        for st in sites:
+            P = st.fns.reset_partial(tr.X[:, st.idx], st.sd)
+            vm = st.valid[:, None, None]
+            A = A.index_copy(1, st.idx, torch.where(vm, P, A[:, st.idx]))
+            B = B.index_copy(1, st.idx, torch.where(vm, 0.0, B[:, st.idx]))
         act = sd.active[:, None, None]
         A = A * act
         B = B * act
         C = C * ((1.0 - sd.is_reset)[:, None, None] * act)
         D = D * ((1.0 - sd.is_reset)[:, None, None] * act)
 
-        lx, lu, ly, lxx, luu, lux, lyy = fns.run_cost_partials(
-            Xs, tr.U, tr.Y, sd)
+        lx, lu, ly, lxx, luu, lux, lyy = _fan_out(
+            fns, "run_cost_partials", N)(Xs, tr.U, tr.Y, sd)
         if opts.ReB_active:
-            g = fns.path_con(Xs, tr.U, tr.Y, sd)
-            gx, gu, gy = fns.path_con_partials(Xs, tr.U, tr.Y, sd)
+            g = _fan_out(fns, "path_con", N)(Xs, tr.U, tr.Y, sd)
+            gx, gu, gy = _fan_out(fns, "path_con_partials", N)(
+                Xs, tr.U, tr.Y, sd)
             rb = penalty.reb_partials(g, gx, gu, gy, pen.reb_delta,
                                       pen.reb_eps, pen.reb_active)
             dt = sd.dt[:, None]
@@ -322,10 +398,10 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
             luu = luu + dt * rb[4]
             lyy = lyy + dt * rb[5]
 
-        phix, phixx = fns.term_cost_partials(tr.X, kd)
+        phix, phixx = _fan_out(fns, "term_cost_partials", N, 1)(tr.X, kd)
         if opts.AL_active:
-            h = fns.term_con(tr.X, kd)
-            hx = fns.term_con_partials(tr.X, kd)
+            h = _fan_out(fns, "term_con", N, 1)(tr.X, kd)
+            hx = _fan_out(fns, "term_con_partials", N, 1)(tr.X, kd)
             ag, ah = penalty.al_partials(h, hx, pen.al_lambda, pen.al_sigma,
                                          pen.al_active)
             phix = phix + ag
@@ -588,7 +664,7 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
         us = Ubar0.shape[-1]
         ys = plan.step.y_ref.shape[-1]
         # the gathered reset sites of the generic rollout and LQ stages
-        sites = (reset_sites(plan, max_resets)
+        sites = (reset_sites(plan, max_resets, fns)
                  if fused_forward is None or fused_lq is None else None)
         tr = init_traj(plan, xs, us, ys, Xbar0, Ubar0)
         zero = x0.new_zeros(Bsz)
@@ -617,6 +693,8 @@ def make_solver(fns: ProblemFns, opts: SolverOptions, *, max_resets=16,
             s = tree_where(active, outer_body(plan, sites, s, active), s)
             it = it + active.to(torch.int32)
             active = (it < opts.max_AL_iter) & ~s.done
+        if not trim_output:
+            return s
         t = s.traj
         return SolveResult(
             Xbar=t.Xbar, Ubar=t.Ubar, K=t.K, Qu=t.Qu, Quu=t.Quu, Qux=t.Qux,

@@ -41,12 +41,31 @@ Phases (one line of output each, unless noted):
      `tests/fixtures/`, (e) f32 against f64; then the median ms per call,
      knots/s, launches, device busy ms and idle share of one call, and the
      phase's peak device memory (two lines);
+  7. the MHPC cascade (`problems/mhpc_problem.py`, segmented solve) on the
+     synthetic quadruped and the urdf-order synthetic bound reference with
+     the in-code default settings:
+     a. the `mhpc` bench configuration (the JAX package's bench.py:87-110):
+        B=256, f32, 25 WB + 10 SRB knots, 4 AL x 1 DDP, sequential line
+        search, 16 resets per segment, reg floor 1e-3, through the sweep
+        and linroll kernels: one warm-up solve (keeping the first sweep's
+        and linroll's operands), timed solves, one solve profiled on the
+        device with the launch counts set to 0 just before and read just
+        after; a scenario that fails is solved again in f64; the same
+        solve through the plain twins (equal success flags, cost within
+        COST_RTOL); then the two kernels against their twins on the
+        captured operands (f64 to 1e-10), their ms per launch and bound;
+     b. MHPCRuntime at B=1 in f64: initialize + 5 updates, each fed the
+        solver's predicted state one MPC period ahead, each step's host
+        plan build, solve and fetch ms;
+     c. one solve of the `cascade500` configuration (bench.py:113-147):
+        B=128, f32, 250 WB + 250 SRB knots, 32 resets per segment;
 then the card's name and power limit, one JSON line of the kernels
 (`launches` each one's launches in phase 3's profiled solve, `ms` its
 device time per launch by torch.profiler, `event_ms` its CUDA-event time
 per wrapper call, host work included, and its bound: bytes over the HBM
-rate or operations over the f32 peak, whichever is larger) and the final
-`{"ok": true, "device": ...}` line.  Exits
+rate or operations over the f32 peak, whichever is larger; for the sweep
+and linroll the same figures at phase 7a's shape under `mhpc`, launches
+per profiled solve) and the final `{"ok": true, "device": ...}` line.  Exits
 non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
@@ -72,8 +91,12 @@ from cafempc_tpu_torch.ops import sweep as sweep_mod
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch, make_batched_solver
 from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
-from cafempc_tpu_torch.reference.quad_reference import QuadReference
-from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
+                                                        wb_state_ref_at)
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference, synthetic_bound_reference_urdf)
+from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver.options import SolverOptions
 
@@ -483,10 +506,12 @@ def bench_problem(dtype):
             broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B)), meta
 
 
-def timed_solves(solve, args, n):
-    """One warm-up solve, then n solves each timed with CUDA events around
-    the solve and the host fetch of (cost, success)."""
-    res = solve(*args)
+def timed_solves(solve, args, n, warmup=True):
+    """One warm-up solve (unless warmup=False), then n solves each timed
+    with CUDA events around the solve and the host fetch of (cost,
+    success)."""
+    if warmup:
+        solve(*args)
     ms = []
     for _ in range(n):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -508,13 +533,15 @@ def read_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def profile_device(fn, host=True):
+def profile_device(fn, host=True, kernels=()):
     """fn() under torch.profiler, fn ending in a host fetch: (kernel
     launches, other device ops (copies, fills), device busy ms, wall ms,
-    the five device ops with the most time as (name, ms, count)), or None
-    where the profiler saw no device activity.  host=False records the
-    device's activity only: for a call of thousands of small ops it costs
-    seconds less to read back and adds less to the wall."""
+    the five device ops with the most time as (name, ms, count), and for
+    each name in `kernels` the (ms, count) of the device ops whose name
+    contains it), or None where the profiler saw no device activity.
+    host=False records the device's activity only: for a call of thousands
+    of small ops it costs seconds less to read back and adds less to the
+    wall."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA]
@@ -537,7 +564,9 @@ def profile_device(fn, host=True):
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(((k[:48], ms, n) for k, (ms, n) in by_name.items()),
                  key=lambda t: -t[1])[:5]
-    return len(dev) - len(copies), len(copies), busy, wall, top
+    named = {k: tuple(map(sum, zip((0.0, 0), *[
+        v for name, v in by_name.items() if k in name]))) for k in kernels}
+    return len(dev) - len(copies), len(copies), busy, wall, top, named
 
 
 def profile_solve(solve, args):
@@ -548,7 +577,7 @@ def profile_solve(solve, args):
 def profile_text(prof, what):
     if prof is None:
         return "profile: no device events seen (not measured)"
-    n_k, n_c, busy, wall, top = prof
+    n_k, n_c, busy, wall, top, _ = prof
     return (f"profile of {what}: {n_k} kernel launches + {n_c} "
             f"copies/fills, device busy {busy:.2f} ms of {wall:.2f} ms "
             f"wall, idle share {1 - busy / wall:.3f}; most device time: "
@@ -894,6 +923,292 @@ def phase_models(label):
           f"[{label}]", flush=True)
 
 
+# Phase 7: the MHPC cascade, the JAX package's bench.py:87-147
+# configurations (whole-body head, SRB tail; xs=36, us=ys=12) with the
+# in-code default settings, on the synthetic quadruped and the urdf-order
+# synthetic bound reference
+MHPC_B = 256
+CASCADE_B = 128
+N_MHPC_TIMED = 3
+N_RT_UPDATES = 5
+MHPC_OPTS = SolverOptions(max_AL_iter=4, max_DDP_iter=1)
+MHPC_KW = dict(trim_output=True, parallel_line_search=False,
+               fused_riccati=True, reg_floor=1e-3)
+PATH_KERNELS = ("sweep", "linroll")
+
+
+def mhpc_cfg(qr):
+    """The `mhpc` config (bench.py:87-110): WB 0.25 s at 0.01, SRB 0.5 s at
+    0.05, n_steps_max 48, wb_block 32."""
+    return mp.MHPCConfig()
+
+
+def cascade500_cfg(qr):
+    """The `cascade500` config (bench.py:113-147): WB 2.5 s at 0.01, SRB
+    5.0 s at 0.02, wb_block and n_steps_max sized from the discovered WB
+    phases."""
+    cfg = mp.MHPCConfig(plan_dur_wb=2.5, dt_wb=0.01, plan_dur_srb=5.0,
+                        dt_srb=0.02)
+    phases = mp.discover_wb_phases(qr, cfg.plan_dur_wb, cfg.dt_wb)
+    cfg.wb_block = sum(p[2] for p in phases) + len(phases)
+    cfg.n_steps_max = cfg.wb_block + round(cfg.plan_dur_srb / cfg.dt_srb)
+    return cfg
+
+
+def mhpc_problem(Bsz, dtype, make_cfg, window, duration):
+    """(cfg, solver inputs, plan metadata) of one MHPC configuration on the
+    card: the reference window `window` s of a synthetic bound `duration`
+    s long; x0 = the WB state reference at t=0 + N(0, 0.01), seed 0
+    (bench.py:211-213)."""
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=duration))
+    qr.initialize(window)
+    cfg = make_cfg(qr)
+    plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(qr, cfg)
+    x0 = wb_state_ref_at(qr, 0.0).astype(np.float32)[None] \
+        + np.random.default_rng(SEED).normal(0, 0.01, (Bsz, mp.XS))
+    plan, pen, x0, Xbar0, Ubar0 = convert.from_numpy(
+        (plan_np, pen_np, x0, Xbar0, Ubar0), DEVICE, dtype)
+    return cfg, (plan, broadcast_batch(pen, Bsz), x0,
+                 broadcast_batch(Xbar0, Bsz),
+                 broadcast_batch(Ubar0, Bsz)), meta
+
+
+def mhpc_models():
+    """The synthetic quadruped's whole-body model on the card in f32 and
+    f64, from a URDF written to a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = synthetic_robot.write_synthetic_quadruped_urdf(tmp)
+        return {dt: wbm.load_model(path, DEVICE, dt)
+                for dt in (torch.float32, torch.float64)}
+
+
+def capturing_solver(fns, **kw):
+    """make_batched_solver(fns, MHPC_OPTS, **kw) whose sweep and linroll
+    calls also keep a copy of their first call's operands: the kernels'
+    inputs at the solve's own shapes and values."""
+    seen, real = {}, {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll}
+
+    def keep(name):
+        def call(*a):
+            seen.setdefault(name, tuple(
+                t.clone() if torch.is_tensor(t) else t for t in a))
+            return real[name](*a)
+        return call
+    sweep_mod.sweep, linroll_mod.linroll = keep("sweep"), keep("linroll")
+    try:
+        return make_batched_solver(fns, MHPC_OPTS, **kw), seen
+    finally:
+        sweep_mod.sweep, linroll_mod.linroll = real["sweep"], real["linroll"]
+
+
+def path_kernel_figures(seen, label):
+    """The sweep and linroll kernels on the MHPC solve's captured operands:
+    against their twins in f32 (ok flags equal) and, on the same operands
+    in f64, to 1e-10; device ms per launch by the profiler, twin ms and
+    bound."""
+    out = {}
+    ins = seen["sweep"]
+    for dtype in (torch.float32, torch.float64):
+        a = tuple(t.to(dtype) if torch.is_tensor(t) and t.is_floating_point()
+                  else t for t in ins)
+        got, want = sweep_mod.sweep(*a), sweep_mod.sweep_reference(*a)
+        ok_k, ok_r = got[7] > 0.5, want[7] > 0.5
+        if not torch.equal(ok_k, ok_r):
+            fail(f"sweep ok flags differ on the mhpc operands ({dtype}): "
+                 f"kernel {int(ok_k.sum())}, twin {int(ok_r.sum())} ok")
+        if not bool(ok_k.any()):
+            fail(f"no scenario's sweep is ok on the mhpc operands ({dtype})")
+        errs = {n: errors(got[i], want[i], ok_k)
+                for i, n in ((0, "G"), (1, "H"), (2, "K"), (3, "dU"),
+                             (8, "dv"))}
+        M = a[0] + a[1] @ got[2]
+        c = seen["linroll"][1].to(dtype)
+        dx0 = seen["linroll"][2].to(dtype)
+        lr_args = (M.contiguous(), c, dx0)
+        dX = linroll_mod.linroll(*lr_args)
+        errs["dX"] = errors(dX, linroll_mod.linroll_reference(*lr_args),
+                            ok_k)
+        worst = max(e[1] for e in errs.values())
+        n = str(dtype)[6:]
+        print(f"[7a] sweep + linroll kernels vs twins on the mhpc solve's "
+              f"first sweep operands (B={ok_k.numel()}, N={a[2].shape[1]}, "
+              f"xs={a[2].shape[2]}, us={a[3].shape[2]}, {n}): ok "
+              f"{int(ok_k.sum())} in both; max err (abs, normalized) "
+              + " ".join(f"{k}=({e[0]:.3e}, {e[1]:.3e})"
+                         for k, e in errs.items()) + f" [{label}]",
+              flush=True)
+        if dtype == torch.float64 and not worst <= 1e-10:
+            fail(f"the f64 sweep or linroll disagrees with its twin on the "
+                 f"mhpc operands: {worst:.3e}")
+        if dtype == torch.float32:
+            out["sweep_err"] = max(errs[k][0] for k in ("G", "H", "K", "dU",
+                                                        "dv"))
+            out["linroll_err"] = errs["dX"][0]
+            out["sweep_bound"] = bound(nbytes(a, got), sweep_flops(a))
+            out["sweep_ms"] = kernel_ms(lambda: sweep_mod.sweep(*a), 20,
+                                        "sweep_kernel")
+            out["sweep_plain_ms"] = time_ms(
+                lambda: sweep_mod.sweep_reference(*a), 2)
+            out["linroll_bound"] = bound(nbytes(lr_args, (dX,)),
+                                         2.0 * M.numel() + c.numel())
+            out["linroll_ms"] = kernel_ms(
+                lambda: linroll_mod.linroll(*lr_args), 50, "linroll_kernel")
+            out["linroll_plain_ms"] = time_ms(
+                lambda: linroll_mod.linroll_reference(*lr_args), 5)
+    return out
+
+
+def solve_text(res, cost, success):
+    info = res.info
+    return (f"success {int(success.sum())}/{success.numel()}, cost finite "
+            f"{bool(torch.isfinite(cost).all())}, iters "
+            f"{info.iters.max().item()}, ls {info.ls_iters.sum().item()}, "
+            f"reg {info.reg_iters.sum().item()}")
+
+
+def f64_rerun(cfg, model, bad, label):
+    """The f32 solve's failing scenarios `bad` solved again in f64 on the
+    card: fails the script where any of them succeeds in f64."""
+    _, args, _ = mhpc_problem(MHPC_B, torch.float64, mhpc_cfg, 0.75, 2.0)
+    plan, *rest = args
+    idx = bad.nonzero().flatten().to(DEVICE)
+    rest = [type(t)(*[a[idx] for a in t]) if isinstance(t, tuple) else t[idx]
+            for t in rest]
+    solve = make_batched_solver(mp.make_mhpc_fns_segmented(cfg, model),
+                                MHPC_OPTS, max_resets=MAX_RESETS, **MHPC_KW)
+    res = solve(plan, *rest)
+    ok64 = res.success.cpu() & torch.isfinite(res.cost.cpu())
+    print(f"[7a] the {int(bad.sum())} scenarios that fail in f32 ("
+          f"{bad.nonzero().flatten().tolist()}), solved in f64: success "
+          f"{ok64.tolist()} [{label}]", flush=True)
+    if bool(ok64.any()):
+        fail("an mhpc scenario fails in f32 but succeeds in f64")
+
+
+def phase_mhpc(label, models):
+    """Phase 7a: the `mhpc` bench configuration at B=256, f32, through the
+    sweep and linroll kernels; then the same solve through their twins."""
+    f32 = torch.float32
+    cfg, args, meta = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
+    fns = mp.make_mhpc_fns_segmented(cfg, models[f32])
+    kw = dict(MHPC_KW, max_resets=MAX_RESETS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solve_c, seen = capturing_solver(fns, **kw)
+    solve_c(*args).cost.cpu()      # the warm-up, keeping kernel operands
+    warm_s = time.perf_counter() - t0
+    solve = make_batched_solver(fns, MHPC_OPTS, **kw)
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, N_MHPC_TIMED,
+                                          warmup=False)
+    launches = read_counts()
+    reset_counts()
+    prof = profile_device(lambda: solve(*args).cost.cpu(), host=False,
+                          kernels=("sweep_kernel", "linroll_kernel"))
+    per_solve = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(ms)
+    st = args[0].step
+    print(f"[7a] mhpc ({len(meta['wb_phases'])} WB phases, "
+          f"{meta['n_knots']} knots, {int(st.is_reset.sum())} resets, "
+          f"xs={mp.XS}), B={MHPC_B} f32, {MHPC_OPTS.max_AL_iter} AL x "
+          f"{MHPC_OPTS.max_DDP_iter} DDP: {MHPC_B / (med / 1e3):.2f} solves/s,"
+          f" median {med:.1f} ms per batched solve (each: "
+          f"{', '.join(f'{m:.1f}' for m in ms)}; warm-up {warm_s:.1f} s); "
+          f"{solve_text(res, cost, success)}; kernel launches over "
+          f"{N_MHPC_TIMED} solves {launches}, in the profiled solve "
+          f"{per_solve}; {profile_text(prof, 'one solve (device only)')}; "
+          f"path kernels in it: "
+          + (", ".join(f"{k} {t:.3f} ms x{n}" for k, (t, n) in prof[5].items())
+             if prof else "not measured")
+          + f"; peak device memory {peak:.2f} GiB [{label}]", flush=True)
+    missed = [k for k in PATH_KERNELS if launches[k] == 0 or per_solve[k] == 0]
+    if missed:
+        fail(f"kernels of the mhpc path were never launched: {missed}")
+    bad = ~(success & torch.isfinite(cost))
+    if bool(bad.any()):
+        f64_rerun(cfg, models[torch.float64], bad, label)
+
+    solve_p = make_batched_solver(fns, MHPC_OPTS, plain_ops=True, **kw)
+    reset_counts()
+    res_p, cost_p, success_p, ms_p = timed_solves(solve_p, args, 1,
+                                                  warmup=False)
+    if any(read_counts().values()):
+        fail(f"the plain-twin mhpc solve launched kernels: {read_counts()}")
+    both = torch.isfinite(cost) & torch.isfinite(cost_p)
+    dX = float((res.Xbar - res_p.Xbar)[both.to(DEVICE)].abs().max())
+    dU = float((res.Ubar - res_p.Ubar)[both.to(DEVICE)].abs().max())
+    dc = float(((cost - cost_p) / cost_p)[both].abs().max())
+    same_it = all(torch.equal(getattr(res.info, f), getattr(res_p.info, f))
+                  for f in ("iters", "ls_iters", "reg_iters"))
+    print(f"[7a] mhpc through the plain twins: {ms_p[0]:.1f} ms per solve; "
+          f"{solve_text(res_p, cost_p, success_p)}; kernel vs plain solve: "
+          f"success flags equal {torch.equal(success, success_p)}, "
+          f"iteration counts equal per scenario {same_it}, max |dXbar| "
+          f"{dX:.3e}, max |dUbar| {dU:.3e}, cost rel diff {dc:.3e} (tol "
+          f"{COST_RTOL:g}) [{label}]", flush=True)
+    if not torch.equal(success, success_p) or not dc <= COST_RTOL:
+        fail("the mhpc kernel solve disagrees with its plain-twin solve")
+    figs = path_kernel_figures(seen, label)
+    figs["launches"] = per_solve
+    return figs
+
+
+def phase_mhpc_runtime(label, model):
+    """Phase 7b: MHPCRuntime at B=1 in f64, initialize + N_RT_UPDATES
+    updates, each fed the solver's own predicted state one MPC period
+    ahead; the ms of each step split into host plan build, solve and
+    fetch."""
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
+    qr.initialize(0.75)
+    rt = MHPCRuntime(qr, mp.MHPCConfig(), SolverOptions(), model=model,
+                     device=DEVICE, dtype=torch.float64)
+    x, lines = wb_state_ref_at(qr, 0.0), []
+    for i in range(N_RT_UPDATES + 1):
+        tape = rt.initialize(x) if i == 0 else rt.update(x)
+        r, t = rt.result, rt.timing
+        ok = bool(r["success"]) and np.isfinite(r["cost"])
+        lines.append(f"{'init' if i == 0 else f'update {i}'} build "
+                     f"{t['build_ms']:.1f} + solve {t['solve_ms']:.1f} + "
+                     f"fetch {t['fetch_ms']:.1f} ms, iters "
+                     f"{int(r['info'].iters)}, success {ok}")
+        if not ok or tape.torque.shape != (rt.n_cmd_steps, 12) \
+                or not np.isfinite(tape.Quu).all():
+            fail(f"mhpc runtime step {i} failed or gave a bad command tape")
+        kn = rt.plan_np.knot
+        j = int(np.where((np.abs(kn.t - rt.cfg.dt_mpc) < 1e-9)
+                         & (kn.is_terminal == 0))[0][0])
+        x = r["Xbar"][j]
+    print(f"[7b] MHPC runtime B=1 f64 against the {rt.cfg.dt_mpc * 1e3:.0f} "
+          "ms MPC period: " + "; ".join(lines) + f" [{label}]", flush=True)
+
+
+def phase_cascade500(label, model):
+    """Phase 7c: one solve of the `cascade500` configuration at B=128,
+    f32, after one warm-up."""
+    cfg, args, meta = mhpc_problem(CASCADE_B, torch.float32, cascade500_cfg,
+                                   7.6, 8.0)
+    solve = make_batched_solver(mp.make_mhpc_fns_segmented(cfg, model),
+                                MHPC_OPTS, max_resets=32, **MHPC_KW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, cost, success, ms = timed_solves(solve, args, 1)
+    n_reset = int(args[0].step.is_reset.sum())
+    print(f"[7c] cascade500 ({len(meta['wb_phases'])} WB phases, "
+          f"{meta['n_knots']} knots: {meta['n_knots'] - 1 - n_reset} "
+          f"dynamics steps, {n_reset} resets), B={CASCADE_B} "
+          f"f32: {ms[0]:.1f} ms per batched solve "
+          f"({CASCADE_B / (ms[0] / 1e3):.2f} solves/s; warm-up and solve "
+          f"{time.perf_counter() - t0:.1f} s); "
+          f"{solve_text(res, cost, success)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{label}]",
+          flush=True)
+    if not bool(torch.isfinite(cost[success]).all()):
+        fail("a cascade500 scenario succeeded with a non-finite cost")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -918,6 +1233,10 @@ def main():
     args, _ = bench_problem(torch.float64)
     phase_runtime(label, args[2][0].cpu().numpy())
     phase_models(label)
+    models = mhpc_models()
+    mhpc = phase_mhpc(label, models)
+    phase_mhpc_runtime(label, models[torch.float64])
+    phase_cascade500(label, models[torch.float32])
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line
@@ -925,6 +1244,17 @@ def main():
             ("linroll", "cafempc_tpu/ops/fused_linroll.py:49/73"),
             ("hkd_lq", "cafempc_tpu/ops/fused_hkd_lq.py:437/521"),
             ("hkd_trial", "cafempc_tpu/ops/fused_hkd_trial.py:317/416")]
+
+    def at_mhpc(name):
+        """The kernel on phase 7a's path, at the mhpc solve's shape."""
+        if name not in PATH_KERNELS:
+            return {}
+        return {"mhpc": {
+            "launches": mhpc["launches"][name],
+            "max_abs_err": mhpc[f"{name}_err"], "ms": mhpc[f"{name}_ms"],
+            "plain_ms": mhpc[f"{name}_plain_ms"],
+            "bound_ms": mhpc[f"{name}_bound"][0],
+            "bound_by": mhpc[f"{name}_bound"][1], "library_ms": None}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"cafempc_tpu_torch/ops/csrc/{name}.cu",
@@ -935,7 +1265,7 @@ def main():
          "bound_ms": f32[f"{name}_bound"][0],
          "bound_by": f32[f"{name}_bound"][1],
          # no single PyTorch call computes any of the four functions
-         "library_ms": None}
+         "library_ms": None, **at_mhpc(name)}
         for name, replaces in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

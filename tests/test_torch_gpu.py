@@ -1,6 +1,9 @@
 """The CUDA kernels on the card: each against its plain twin, and a small
 HKD solve through the kernels against the same solve through the twins;
-the whole-body and SRB model layer on the card against the CPU.
+the whole-body and SRB model layer on the card against the CPU; the MHPC
+cascade's WB functions on the card against the CPU, and a small MHPC solve
+through the sweep and linroll kernels against the same solve through
+their twins.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it runs on a machine without it:
@@ -20,8 +23,12 @@ from cafempc_tpu_torch.ops import sweep as sw
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch
 from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
-from cafempc_tpu_torch.reference.quad_reference import QuadReference
-from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
+                                                        wb_state_ref_at)
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference, synthetic_bound_reference_urdf)
+from cafempc_tpu_torch.solver import hsddp
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
 from torch_port_inputs import (HKD_LQ_IN, HKD_TRIAL_IN, hkd_operands,
@@ -443,3 +450,93 @@ def test_model_layer_never_moves_to_the_cpu(cuda, robot, monkeypatch):
     wbm.impact_partial_analytic(m, d["x"], d["c"], 1.0 - d["c"])
     srb.dynamics_partials(s["x"], s["u"], s["pf"], s["c"], 0.02)
     torch.cuda.synchronize()
+
+
+# ---- the MHPC cascade (segmented problem functions) --------------------
+
+MHPC_PLAN = dict(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
+                 wb_block=16)
+
+
+def _mhpc_inputs(Bsz, seed=5):
+    """The small cascaded plan (10 WB + 4 SRB knots) on the urdf-order
+    synthetic bound reference, with Bsz perturbed initial states and
+    perturbed states, controls and outputs for the problem functions."""
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=1.0))
+    qr.initialize(0.4)
+    cfg = mp.MHPCConfig(**MHPC_PLAN)
+    plan_np, pen_np, Xbar0, Ubar0, _ = mp.build_mhpc_plan(qr, cfg)
+    rng = np.random.default_rng(seed)
+    x0 = wb_state_ref_at(qr, 0.0)[None] + rng.normal(0, 0.01, (Bsz, 36))
+    knots = dict(X=Xbar0[None] + rng.normal(0, 0.02, (Bsz,) + Xbar0.shape),
+                 U=rng.normal(0, 2.0, (Bsz,) + Ubar0.shape),
+                 Y=rng.normal(0, 20.0, (Bsz,) + Ubar0.shape))
+    return cfg, (plan_np, pen_np, x0, Xbar0, Ubar0), knots
+
+
+def _mhpc_fns(cfg, robot, device):
+    return mp.make_mhpc_fns_segmented(
+        cfg, wbm.load_model(robot, device, torch.float64))
+
+
+# (function, per-knot): every problem function of both segments
+MHPC_FNS = [("dyn", False), ("dyn_partials", False), ("run_cost", False),
+            ("run_cost_partials", False), ("path_con", False),
+            ("path_con_partials", False), ("term_cost", True),
+            ("term_cost_partials", True), ("term_con", True),
+            ("term_con_partials", True), ("reset", False),
+            ("reset_partial", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,knot", MHPC_FNS)
+def test_mhpc_fns_on_card_match_cpu(cuda, robot, name, knot):
+    """Each problem function of the cascade's two segments (through the
+    solver's fan-out; the resets at the gathered reset sites) on 2
+    scenarios of the small plan, on the card in f64 against the CPU."""
+    cfg, (plan_np, *_), kn = _mhpc_inputs(2)
+
+    def run(device):
+        fns = _mhpc_fns(cfg, robot, device)
+        plan = from_numpy(plan_np, device, torch.float64)
+        X, U, Y = (torch.as_tensor(kn[k], device=device) for k in "XUY")
+        if name.startswith("reset"):
+            st = hsddp.reset_sites(plan, 16, fns)[0]
+            return getattr(st.fns, name)(X[:, st.idx], st.sd)
+        f = hsddp._fan_out(fns, name, plan.n_steps, 1 if knot else 0)
+        if knot:
+            return f(X, plan.knot)
+        if name.startswith("dyn"):
+            return f(X[:, :-1], U, plan.step)
+        return f(X[:, :-1], U, Y, plan.step)
+
+    got, want = run(cuda), run("cpu")
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.float64
+        assert _rel_err(g.cpu(), w) < 1e-10, name
+
+
+@pytest.mark.gpu
+def test_mhpc_solve_through_kernels_matches_twins(cuda, robot):
+    """A B=4 f64 solve of the small cascaded plan: through the sweep and
+    linroll kernels against their twins, same success flags and iteration
+    counts, trajectories to 1e-8; the twin solve launches no kernel."""
+    cfg, host, _ = _mhpc_inputs(4)
+    plan_np, pen_np, x0, Xbar0, Ubar0 = host
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, x0, Xbar0, Ubar0), cuda, torch.float64)
+    args = (plan, broadcast_batch(pen, 4), x0, broadcast_batch(Xbar0, 4),
+            broadcast_batch(Ubar0, 4))
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
+    kw = dict(max_resets=16, reg_floor=1e-3)
+    fns = _mhpc_fns(cfg, robot, cuda)
+    before = (sw.sweep.launches, lr.linroll.launches)
+    got = make_solver(fns, opts, **kw)(*args)
+    torch.cuda.synchronize()
+    after = (sw.sweep.launches, lr.linroll.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    want = make_solver(fns, opts, plain_ops=True, **kw)(*args)
+    assert (sw.sweep.launches, lr.linroll.launches) == after
+    _same_solve(got, want)

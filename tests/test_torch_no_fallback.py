@@ -9,15 +9,21 @@ import pytest
 import torch
 
 from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.models import synthetic_robot, wbm
 from cafempc_tpu_torch.ops import _ext, hkd_table
 from cafempc_tpu_torch.ops import hkd_lq as hl
 from cafempc_tpu_torch.ops import hkd_trial as ht
 from cafempc_tpu_torch.ops import linroll as lr
 from cafempc_tpu_torch.ops import sweep as sw
-from cafempc_tpu_torch.parallel.mesh import make_batched_solver
+from cafempc_tpu_torch.parallel.mesh import (broadcast_batch,
+                                             make_batched_solver)
 from cafempc_tpu_torch.problems import hkd_problem as hp
-from cafempc_tpu_torch.reference.quad_reference import QuadReference
-from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
+                                                        wb_state_ref_at)
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference, synthetic_bound_reference_urdf)
+from cafempc_tpu_torch.solver.hsddp import SegmentedFns
 from cafempc_tpu_torch.solver.options import SolverOptions
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -215,6 +221,74 @@ def test_unported_variants_raise():
         make_batched_solver(fns, SolverOptions(), parallel_line_search=True)
     with pytest.raises(NotImplementedError):
         make_batched_solver(fns, SolverOptions(), fused_riccati=False)
+
+
+@pytest.fixture(scope="module")
+def mhpc_model(tmp_path_factory):
+    return wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp_path_factory.mktemp("robot"))), "cpu", torch.float64)
+
+
+MHPC_PLAN = dict(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
+                 wb_block=16)
+
+
+@pytest.mark.parametrize("mode,env", [("joint", None), ("wb", (
+    "CAFEMPC_WB_AD_PARTIALS", "1")), ("wb", ("CAFEMPC_WB_CF", "1"))])
+def test_unported_mhpc_modes_raise(mhpc_model, monkeypatch, mode, env):
+    """The joint where-select mode, the AD partials and the closed-form FK
+    bundle of the JAX package are not ported: asking for them raises."""
+    if env is not None:
+        monkeypatch.setenv(*env)
+    with pytest.raises(NotImplementedError):
+        mp.make_mhpc_fns(mp.MHPCConfig(**MHPC_PLAN), mhpc_model, mode)
+
+
+def _mhpc_problem(Bsz=1):
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=1.0))
+    qr.initialize(0.4)
+    cfg = mp.MHPCConfig(**MHPC_PLAN)
+    plan_np, pen_np, Xbar0, Ubar0, _ = mp.build_mhpc_plan(qr, cfg)
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, wb_state_ref_at(qr, 0.0), Xbar0, Ubar0), "cpu",
+        torch.float64)
+    return cfg, (plan, broadcast_batch(pen, Bsz), broadcast_batch(x0, Bsz),
+                 broadcast_batch(Xbar0, Bsz), broadcast_batch(Ubar0, Bsz))
+
+
+@pytest.mark.parametrize("counts", [(16, 7), (16, 9), (24,), (0, 24)])
+def test_segmented_fns_with_counts_off_the_plan_raise(mhpc_model, counts):
+    """SegmentedFns whose counts do not split the plan's 24 steps into
+    positive segments, one per ProblemFns, are refused."""
+    cfg, args = _mhpc_problem()
+    seg = mp.make_mhpc_fns_segmented(cfg, mhpc_model)
+    bad = SegmentedFns(counts=counts, fns=seg.fns)
+    solve = make_batched_solver(bad, SolverOptions(max_AL_iter=1,
+                                                   max_DDP_iter=1))
+    with pytest.raises(ValueError, match="SegmentedFns: counts"):
+        solve(*args)
+
+
+def test_mhpc_solve_on_cpu_runs_the_twins_and_counts_no_launch(mhpc_model):
+    """The segmented MHPC solve on CPU tensors goes through the plain
+    twins of the sweep and the linear rollout: it succeeds and launches
+    nothing."""
+    cfg, args = _mhpc_problem()
+    before = (sw.sweep.launches, lr.linroll.launches)
+    res = make_batched_solver(
+        mp.make_mhpc_fns_segmented(cfg, mhpc_model),
+        SolverOptions(max_AL_iter=1, max_DDP_iter=1), max_resets=16,
+        reg_floor=1e-3)(*args)
+    assert bool(res.success.all()) and bool(torch.isfinite(res.cost).all())
+    assert int(res.info.iters[0]) == 1
+    assert (sw.sweep.launches, lr.linroll.launches) == before
+
+
+def test_fused_hooks_refuse_segmented_fns(mhpc_model):
+    cfg, _ = _mhpc_problem()
+    with pytest.raises(ValueError, match="SegmentedFns"):
+        make_batched_solver(mp.make_mhpc_fns_segmented(cfg, mhpc_model),
+                            SolverOptions(), fused_lq=lambda *a, **k: None)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -32,9 +32,11 @@ MODULES = [
     "cafempc_tpu_torch.ops.hkd_lq",
     "cafempc_tpu_torch.ops.hkd_trial",
     "cafempc_tpu_torch.problems.hkd_fused",
+    "cafempc_tpu_torch.problems.mhpc_problem",
     "cafempc_tpu_torch.parallel.mesh",
     "cafempc_tpu_torch.runtime.warm_start",
     "cafempc_tpu_torch.runtime.mpc",
+    "cafempc_tpu_torch.runtime.mhpc_runtime",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
