@@ -1,6 +1,5 @@
-"""Receding-horizon MPC runtime for the cascaded MHPC problem (port of
-`cafempc_tpu/runtime/mhpc_runtime.py`: `initialize`, `update`, the command
-tape).
+"""Receding-horizon MPC runtime for the cascaded MHPC problem and its LCM
+service (port of `cafempc_tpu/runtime/mhpc_runtime.py`).
 
 Functional equivalent of the reference MHPCLocomotion
 (MHPC/MHPCLocomotion.cpp): initialize() does the full-cap solve; update()
@@ -11,15 +10,24 @@ absolute knot time (`runtime/warm_start.py`) and re-solves at the runtime
 iteration caps.  `command_tape()` is publish_mpc_cmd's 8-step tape
 (MHPCLocomotion.cpp:190-287): x, tau, GRF, Qu, Quu, Qux and the feedback
 K of the first WB dynamics steps, the matrices flattened column-major as
-the reference's Eigen .data() copies are.
+the reference's Eigen .data() copies are; `command_message()` encodes it
+as `MHPC_Command_lcmt`.
+
+`serve(endpoint)` is the MPC process of the reference topology
+(MHPCLocomotion::run + mpcdata_lcm_handler, MHPCLocomotion.cpp:90-187):
+it takes `MHPC_Data_lcmt` states from the wire, solves only the newest
+pending one (latest state wins), follows the message's `mpctime` with the
+MPC clock, re-initializes on `reset_mpc`, publishes the command, and
+adopts its endpoint for the telemetry: `solver_info_lcmt` after every
+solve and, with `debug_intermtraj`, `solver_intermtraj_lcmt` after every
+AL outer iteration.
 
 The runtime takes the robot (a `wbm` model or a URDF path); the JAX
 runtime always loads the default URDF (mhpc_runtime.py:52).  Solver
 configuration: the JAX runtime compiles `make_solver` with its defaults
 (parallel line search, lax.scan sweep); the port runs the sequential line
 search and the sweep and linear-rollout kernels, which the JAX package
-pins as the same solve.  Not ported: `serve`, the LCM messages and the
-intermediate-trajectory callback.
+pins as the same solve.
 """
 import dataclasses
 import time
@@ -27,10 +35,13 @@ import time
 import numpy as np
 import torch
 
+from cafempc_tpu_torch.comms import lcm_wire as w
 from cafempc_tpu_torch.convert import from_numpy, to_numpy
 from cafempc_tpu_torch.models import wbm
 from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.runtime.mpc import (intermtraj_message,
+                                           serve_newest, solver_info_message)
 from cafempc_tpu_torch.runtime.warm_start import time_aligned_warm_start
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
@@ -67,13 +78,18 @@ class MHPCRuntime:
     def __init__(self, quad_ref: QuadReference, cfg: mp.MHPCConfig,
                  opts: SolverOptions, model=None, urdf_path=None,
                  device="cuda", dtype=torch.float64, n_cmd_steps=8,
-                 max_resets=8, foot_handoff=False):
+                 max_resets=8, foot_handoff=False, endpoint=None,
+                 debug_intermtraj=False):
         """model: the whole-body model (`wbm.load_model`) at `device` and
         `dtype`, or urdf_path to load it from; max_resets: reset steps
         gathered per segment; foot_handoff: freeze the solved WB foot XY
         into the SRB tail for feet in stance at the handoff
         (MHPCFootStep.h:26-57, opt-in, see
-        mhpc_problem.apply_transition_foot_handoff)."""
+        mhpc_problem.apply_transition_foot_handoff); endpoint: a
+        `comms.udpm.LCMEndpoint` for the telemetry (`serve` adopts its own
+        where this is None); debug_intermtraj: publish
+        solver_intermtraj_lcmt on "intermediate_ddp_traj" after every AL
+        outer iteration (MultiPhaseDDP.h:95-107)."""
         if model is None:
             if urdf_path is None:
                 raise ValueError("MHPCRuntime needs the robot: a wbm model "
@@ -82,6 +98,7 @@ class MHPCRuntime:
         self.qr = quad_ref
         self.cfg = mp._default_weights(cfg)
         self.model = model
+        self.endpoint = endpoint
         self.device = device
         self.dtype = dtype
         self.n_cmd_steps = n_cmd_steps
@@ -90,7 +107,8 @@ class MHPCRuntime:
         # are the JAX joint mode's on such a plan
         fns = (mp.make_mhpc_fns_segmented(cfg, model) if cfg.plan_dur_srb > 0
                else mp.make_mhpc_fns(cfg, model, "wb"))
-        kw = dict(max_resets=max_resets, trim_output=False)
+        kw = dict(max_resets=max_resets, trim_output=False, iter_callback=(
+            self._intermtraj_callback if debug_intermtraj else None))
         self.solve_init = make_solver(fns, opts, **kw)
         self.solve_rt = make_solver(fns, opts.runtime(), **kw)
         self.mpc_time = 0.0
@@ -106,6 +124,11 @@ class MHPCRuntime:
         self.max_solve_ms = 0.0
         self.timing = {}
         self._n_solves = 0
+        # serve(): solves run, states not yet solved, (endpoint, channel)
+        # pairs subscribed
+        self._n_served = 0
+        self._serve_pending = []
+        self._serve_subs = set()
 
     # ---------------- solve ------------------------------------------
     def _sync(self):
@@ -152,6 +175,7 @@ class MHPCRuntime:
         self._solve(self.solve_init, t_build, plan_np, pen_np, x0, Xbar0,
                     Ubar0)
         self.plan_np, self.meta = plan_np, meta
+        self._publish_solver_info()
         return self.command_tape()
 
     def update(self, x_meas, dt=None):
@@ -172,7 +196,23 @@ class MHPCRuntime:
                 plan_np, self.cfg, Xb[self.cfg.wb_block - 1], self.model)
         self._solve(self.solve_rt, t_build, plan_np, pen_np, x_meas, Xb, Ub)
         self.plan_np, self.meta = plan_np, meta
+        self._publish_solver_info()
         return self.command_tape()
+
+    # ---------------- telemetry --------------------------------------
+    def _intermtraj_callback(self, Xbar, Ubar, it):
+        """The solver's iter_callback: the current nominal trajectory as
+        solver_intermtraj_lcmt (publish_trajectory,
+        MultiPhaseDDP.h:95-107)."""
+        if self.endpoint is not None:
+            self.endpoint.publish("intermediate_ddp_traj",
+                                  intermtraj_message(Xbar[0], Ubar[0]))
+
+    def _publish_solver_info(self):
+        """solver_info_lcmt telemetry (MHPCLocomotion.cpp:74-79)."""
+        if self.endpoint is not None:
+            self.endpoint.publish("DDP_Solver_Info", solver_info_message(
+                self.result, self.last_solve_ms))
 
     # ---------------- outputs ----------------------------------------
     def command_tape(self):
@@ -203,3 +243,46 @@ class MHPCRuntime:
             feedback=colmajor(r["K"]), Qu=r["Qu"][idx],
             Quu=colmajor(r["Quu"]), Qux=colmajor(r["Qux"]),
             contacts=st.contact[idx].astype(np.int32), statusTimes=status)
+
+    def command_message(self):
+        """The command tape as MHPC_Command_lcmt (MHPCLocomotion.cpp:
+        190-287)."""
+        tape = self.command_tape()
+        return w.MHPC_Command_lcmt(N_mpcsteps=len(tape.mpc_times),
+                                   **dataclasses.asdict(tape))
+
+    # ---------------- LCM service ------------------------------------
+    def serve(self, endpoint, data_channel="MHPC_DATA",
+              cmd_channel="MHPC_COMMAND", max_msgs=None):
+        """Serve MPC over the wire (MHPCLocomotion::run +
+        mpcdata_lcm_handler, MHPCLocomotion.cpp:90-187): take
+        MHPC_Data_lcmt from `data_channel`, solve, publish
+        MHPC_Command_lcmt on `cmd_channel`.  States that arrive while a
+        solve runs are superseded: each pass drains the socket and solves
+        only the newest pending state.  Without a telemetry endpoint the
+        runtime adopts this one.  Returns after `max_msgs` solves (None:
+        never).  A failed solve raises."""
+        if self.endpoint is None:
+            self.endpoint = endpoint
+        return serve_newest(
+            self, endpoint, data_channel, w.MHPC_Data_lcmt,
+            lambda msg: endpoint.publish(cmd_channel,
+                                         self._solve_message(msg)),
+            max_msgs)
+
+    def _solve_message(self, msg):
+        """initialize or update at the message's state
+        [pos, eul, qJ, vWorld, eulrate, qJd] (MHPCLocomotion.cpp:163-170),
+        the MPC clock set to its mpctime (MHPCLocomotion.cpp:171-172);
+        returns the command."""
+        x = np.concatenate([msg.pos, msg.eul, msg.qJ, msg.vWorld,
+                            msg.eulrate, msg.qJd]).astype(float)
+        delta = float(msg.mpctime) - self.mpc_time
+        if msg.reset_mpc or self.result is None:
+            if delta > 1e-12:
+                self.qr.step(delta)
+            self.mpc_time = float(msg.mpctime)
+            self.initialize(x)
+        else:
+            self.update(x, dt=delta if delta > 1e-12 else None)
+        return self.command_message()

@@ -242,7 +242,7 @@ def _per_lane(v):
 
 def make_solver(fns, opts: SolverOptions, *, max_resets=16,
                 reg_floor=0.0, plain_ops=False, fused_forward=None,
-                fused_lq=None, trim_output=True):
+                fused_lq=None, trim_output=True, iter_callback=None):
     """Build ``solve(plan, pen, x0, Xbar0, Ubar0)`` over a batch: a
     `SolveResult` (the JAX package's `trim_output=True` output), or with
     trim_output=False the final `SolverState` (whose traj carries, e.g.,
@@ -274,6 +274,12 @@ def make_solver(fns, opts: SolverOptions, *, max_resets=16,
     ``f(plan, pen, tr, plain_ops) -> tr`` replacing lq_approx (e.g.
     problems/hkd_fused.make_hkd_fused_lq); it sets the fields lq_approx
     sets, or leaves them zero.
+    iter_callback: optional host callback ``f(Xbar, Ubar, it)`` called after
+    every AL outer iteration with the batch's nominal trajectory (tensors
+    [B, N+1, xs] and [B, N, us] on the solve's device) and the iteration's
+    0-based index: the JAX package's io_callback, the reference's
+    intermediate-trajectory publishing (MultiPhaseDDP.h:95-107).  Without
+    it the loop makes no host fetch for it.
     """
     if not (opts.MS and max_resets):
         raise ValueError("the port runs the all-shooting multiple-shooting "
@@ -689,8 +695,12 @@ def make_solver(fns, opts: SolverOptions, *, max_resets=16,
 
         it = izero
         active = it < opts.max_AL_iter
+        n_outer = 0
         while _any(active):
             s = tree_where(active, outer_body(plan, sites, s, active), s)
+            if iter_callback is not None:
+                iter_callback(s.traj.Xbar, s.traj.Ubar, n_outer)
+            n_outer += 1
             it = it + active.to(torch.int32)
             active = (it < opts.max_AL_iter) & ~s.done
         if not trim_output:

@@ -59,6 +59,26 @@ Phases (one line of output each, unless noted):
         plan build, solve and fetch ms;
      c. one solve of the `cascade500` configuration (bench.py:113-147):
         B=128, f32, 250 WB + 250 SRB knots, 32 resets per segment;
+  8. the serving path, sim <-> MPC <-> C++ consumer over LCM UDP multicast
+     on loopback (ttl 0), the MPC server in this process on the card:
+     a. every LCM type (and a 92,816-byte wbTraj_lcmt in LC03 fragments)
+        from the Python transport to the native one and back, bytes equal;
+     b. HKDMPCRuntime at phase 5's configuration serving the sim role of
+        `cafempc_tpu_torch.examples.two_process_hkd_mpc` (a subprocess on
+        the CPU) for 20 MPC steps, one serve(max_msgs=1) a step with the
+        launch counts set to 0 just before and read just after (the sweep
+        and linroll must launch on every served solve), while the C++
+        `hkd_command_listener` (a subprocess) decodes 10 commands; the
+        sim's height check must hold and the last command equal the
+        runtime's `command_message` after the f32 cast; per step the
+        latency (state published -> command received, from the sim) and
+        the runtime's build / solve / fetch ms;
+     c. 5 states queued, then one serve(max_msgs=1): one solve, on the
+        newest (its command's mpc_times[0] is that state's mpctime);
+     d. MHPCRuntime at phase 7b's configuration with debug_intermtraj
+        serving the sim role of `two_process_mhpc` for init + 3 updates: a
+        client counts solver_info (one per solve) and intermediate
+        trajectories (one per AL iteration) and checks the last command;
 then the card's name and power limit, one JSON line of the kernels
 (`launches` each one's launches in phase 3's profiled solve, `ms` its
 device time per launch by torch.profiler, `event_ms` its CUDA-event time
@@ -75,12 +95,19 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 from cafempc_tpu_torch import convert
+from cafempc_tpu_torch.comms import lcm_wire as wire
+from cafempc_tpu_torch.comms import native
+from cafempc_tpu_torch.comms.udpm import (DEFAULT_ADDR, LCMEndpoint,
+                                          UDPMulticast, frame)
+from cafempc_tpu_torch.examples import two_process_hkd_mpc as ex_hkd
+from cafempc_tpu_torch.examples import two_process_mhpc as ex_mhpc
 from cafempc_tpu_torch.models import hkd, rbda, srb, synthetic_robot, wb_lane
 from cafempc_tpu_torch.models import wbm
 from cafempc_tpu_torch.ops import _ext
@@ -1209,6 +1236,372 @@ def phase_cascade500(label, model):
         fail("a cascade500 scenario succeeded with a non-finite cost")
 
 
+# Phase 8: the serving path, sim <-> MPC <-> C++ consumer over LCM UDP
+# multicast on the machine's loopback (ttl 0): the MPC server runs in this
+# process on the card, the sim role of the port's two-process examples and
+# the C++ listener of native/ as subprocesses
+N_SERVED = 20           # 8b: MPC steps of the HKD closed loop
+N_LISTENED = 10         # commands the C++ consumer must decode
+N_QUEUED = 5            # 8c: states queued before one serve()
+N_MHPC_SERVED = 4       # 8d: init + 3 updates
+SERVE_DEADLINE_S = 300  # longest a served loop may take
+FRAGMENTED_SZ = 200     # rows of the wbTraj_lcmt sent in LC03 fragments
+
+
+def wire_messages():
+    """One message of each of the eleven types with fields from the seed
+    (variable dimensions 3), and a wbTraj_lcmt of FRAGMENTED_SZ rows."""
+    rng = np.random.default_rng(SEED)
+
+    def filled(cls, n):
+        msg = cls()
+        for f in cls.FIELDS:
+            if not f.dims:
+                setattr(msg, f.name, n if f.typ.startswith("int")
+                        else float(rng.normal()) if f.typ != "boolean"
+                        else True)
+        for f in cls.FIELDS:
+            if f.dims:
+                shape = msg._shape(f)
+                setattr(msg, f.name, rng.integers(-9, 9, shape)
+                        if f.typ.startswith("int") or f.typ == "boolean"
+                        else rng.normal(size=shape))
+        return msg
+
+    return ([(cls.__name__, filled(cls, 3)) for cls in wire.ALL_TYPES]
+            + [("wbTraj_lcmt (fragmented)",
+                filled(wire.wbTraj_lcmt, FRAGMENTED_SZ))])
+
+
+def roundtrip(tx, rx, channel, data):
+    """Publish `data` on tx and wait up to 5 s for rx to deliver it."""
+    got = []
+    rx.subscribe(channel, lambda _c, d: got.append(d))
+    tx.publish(channel, data)
+    t_end = time.monotonic() + 5.0
+    while not got and time.monotonic() < t_end:
+        rx.handle(0.05)
+    if not got:
+        fail(f"{channel}: nothing received within 5 s")
+    return got[0]
+
+
+def phase_wire(label):
+    """8a: every message type through the Python and the native transport
+    in both directions, bytes and decoded fields compared."""
+    t0 = time.perf_counter()
+    py, nat = UDPMulticast(), native.NativeUDPMulticast()
+    sizes = []
+    try:
+        for name, msg in wire_messages():
+            data = msg.encode()
+            for way, tx, rx in (("py-native", py, nat),
+                                ("native-py", nat, py)):
+                back = roundtrip(tx, rx, f"smoke_{way}_{name.split()[0]}"
+                                 f"_{len(data)}", data)
+                dec = type(msg).decode(back)
+                if back != data or dec.encode() != data:
+                    fail(f"{name} {way}: received bytes differ")
+            sizes.append(f"{name} {len(data)} B / "
+                         f"{len(frame(0, 'x', data))} datagram(s)")
+    finally:
+        py.close()
+        nat.close()
+    print(f"[8a] wire: {len(sizes)} messages, each Python -> native and "
+          "native -> Python over UDP multicast "
+          f"{DEFAULT_ADDR[0]}:{DEFAULT_ADDR[1]}"
+          f" ttl 0, byte-identical: " + "; ".join(sizes)
+          + f"; {time.perf_counter() - t0:.2f} s [{label}]", flush=True)
+
+
+def start(args, what):
+    """A child process of this script (the port on its path), stdout and
+    stderr piped."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
+    proc = subprocess.Popen(args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.what = what
+    return proc
+
+
+def sim_args(module, steps):
+    return [sys.executable, "-m", module.MODULE, "--role", "sim", "--steps",
+            str(steps), "--device", "cpu", "--republish-s", "0"]
+
+
+class Watchdog:
+    """Ends the script (exit 1, no result) when a child exits non-zero or
+    SERVE_DEADLINE_S passes while this process waits in serve(): a served
+    loop whose sim died would wait for its next state for ever."""
+
+    def __init__(self, what, procs):
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._watch, args=(what, procs),
+                                       daemon=True)
+        self.thread.start()
+
+    def _watch(self, what, procs):
+        t_end = time.monotonic() + SERVE_DEADLINE_S
+        while not self.done.wait(0.5):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if not bad and time.monotonic() < t_end:
+                continue
+            for p in procs:
+                p.kill()
+            tails = []
+            for p in procs:
+                out, err = p.communicate(timeout=10)
+                tails.append(f"{p.what} rc {p.returncode}: "
+                             f"{(out + err)[-1500:]}")
+            print(f"chip_smoke FAILED: {what}: "
+                  + ("a child failed" if bad else
+                     f"not done in {SERVE_DEADLINE_S} s") + "\n"
+                  + "\n".join(tails), file=sys.stderr, flush=True)
+            os._exit(1)
+
+    def stop(self):
+        self.done.set()
+        self.thread.join()
+
+
+def finish(proc, timeout=60):
+    """Wait for a child; fails unless it exits 0.  Returns its stdout."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        fail(f"{proc.what} did not exit within {timeout} s: {err[-1500:]}")
+    if proc.returncode != 0:
+        fail(f"{proc.what} exited {proc.returncode}: {(out + err)[-1500:]}")
+    return out
+
+
+def sim_steps(out, n):
+    """The sim's per-step figures from its `{"sim": ...}` line."""
+    lines = [l for l in out.splitlines() if l.startswith('{"sim"')]
+    if not lines:
+        fail("the sim printed no figures")
+    steps = json.loads(lines[-1])["sim"]["steps"]
+    if len(steps) != n:
+        fail(f"the sim got {len(steps)} commands, not {n}")
+    return steps
+
+
+def dedup(buf):
+    """Subscriber keeping only messages that differ from the last one kept
+    (multicast loopback can deliver a datagram once per interface)."""
+    def cb(_c, m):
+        if not buf or buf[-1].encode() != m.encode():
+            buf.append(m)
+    return cb
+
+
+def pump(ep, seconds=0.2):
+    t_end = time.monotonic() + seconds
+    while time.monotonic() < t_end:
+        ep.handle(0.02)
+
+
+def serve_steps(rt, ep, n):
+    """n calls of rt.serve(ep, max_msgs=1): each must run one solve that
+    launches the sweep and the linroll kernels (counts set to 0 just
+    before, read just after).  Returns per call (timing, launches).
+    Clients are read only afterwards: their sockets hold what arrives, and
+    the server is not held up between calls."""
+    out = []
+    for i in range(n):
+        n_solves = rt._n_solves
+        reset_counts()
+        if rt.serve(ep, max_msgs=1) != 1 or rt._n_solves != n_solves + 1:
+            fail(f"served call {i} did not run exactly one solve")
+        launches = read_counts()
+        if not all(launches[k] > 0 for k in PATH_KERNELS):
+            fail(f"served solve {i} launched {launches}")
+        out.append((dict(rt.timing), launches))
+    return out
+
+
+def med_max(vals):
+    return f"median {statistics.median(vals):.2f}, max {max(vals):.2f}"
+
+
+def serve_text(steps, served, period_ms):
+    lat = [s["latency_ms"] for s in steps]
+    parts = {k: [t[k] for t, _ in served]
+             for k in ("build_ms", "solve_ms", "fetch_ms")}
+    lines = [f"{i}: latency {s['latency_ms']:.2f} ms = build "
+             f"{t['build_ms']:.2f} + solve {t['solve_ms']:.2f} + fetch "
+             f"{t['fetch_ms']:.2f} ms + wire/host, sweep x{c['sweep']} "
+             f"linroll x{c['linroll']}"
+             for i, (s, (t, c)) in enumerate(zip(steps, served))]
+    return ("; ".join(lines) + f"; latency ms {med_max(lat)}; build ms "
+            f"{med_max(parts['build_ms'])}; solve ms "
+            f"{med_max(parts['solve_ms'])}; fetch ms "
+            f"{med_max(parts['fetch_ms'])}; against the {period_ms:.0f} ms "
+            "period")
+
+
+def same_message(got, want, what):
+    """got (decoded off the wire) equals want after the schema's f32 cast,
+    field by field and byte for byte."""
+    want = wire.f32_cast(want)
+    for f in type(want).FIELDS:
+        if not np.array_equal(np.asarray(getattr(got, f.name)),
+                              np.asarray(getattr(want, f.name))):
+            fail(f"{what}: field {f.name} differs from the runtime's")
+    if got.encode() != want.encode():
+        fail(f"{what}: bytes differ from the runtime's")
+
+
+def phase_serve_hkd(label):
+    """8b: HKDMPCRuntime at phase 5's configuration serving the HKD sim
+    role for N_SERVED MPC steps, the C++ listener decoding the commands;
+    8c: N_QUEUED states queued before one serve(max_msgs=1)."""
+    qr = QuadReference(synthetic_bound_reference(duration=ex_hkd.REF_DURATION))
+    qr.initialize(PLAN_DURATION)
+    cfg = hp.HKDConfig(plan_duration=PLAN_DURATION, n_steps_max=N_STEPS)
+    if (cfg.dt_sim, cfg.nsteps_between_mpc) != (ex_hkd.DT_SIM,
+                                                ex_hkd.NSTEPS_MPC):
+        fail("the sim's dt_sim or steps per period are not the runtime's")
+    rt = HKDMPCRuntime(qr, cfg, SolverOptions(), device=DEVICE,
+                       dtype=torch.float64)
+    ep = LCMEndpoint(UDPMulticast())
+    client = LCMEndpoint(UDPMulticast())
+    cmds = []
+    client.subscribe("mpc_command", wire.hkd_command_lcmt, dedup(cmds))
+    listener = start([str(native.build_listener()), str(N_LISTENED)],
+                     "the C++ listener")
+    first = listener.stdout.readline()
+    if "waiting on mpc_command" not in first:
+        fail(f"the C++ listener did not start: {first!r}")
+    sim = start(sim_args(ex_hkd, N_SERVED), "the HKD sim")
+    dog = Watchdog("8b HKD served loop", [sim, listener])
+    served = serve_steps(rt, ep, N_SERVED)
+    dog.stop()
+    steps = sim_steps(finish(sim), N_SERVED)
+    heard = first + finish(listener)
+    n_heard = [int(l.split("ok:")[1].split()[0]) for l in heard.splitlines()
+               if "ok:" in l]
+    if not n_heard or n_heard[0] < N_LISTENED:
+        fail(f"the C++ listener decoded no {N_LISTENED} commands: {heard}")
+    pump(client, 0.5)
+    last = [c for c in cmds if c.mpc_times[0] == rt.mpc_time]
+    if not last:
+        fail("the client saw no command of the last served state")
+    same_message(last[-1], rt.command_message(solve_time=last[-1].solve_time),
+                 "8b hkd_command_lcmt")
+    print(f"[8b] HKD served closed loop, HKDMPCRuntime B=1 f64 "
+          f"({N_STEPS} steps, {PLAN_DURATION} s plan) <- sim subprocess "
+          f"(HKD dynamics, dt_sim {cfg.dt_sim}, {cfg.nsteps_between_mpc} "
+          f"steps a period), {N_SERVED} MPC steps, sim z "
+          f"{min(s['z'] for s in steps):.3f}..{max(s['z'] for s in steps):.3f}"
+          f" m; C++ listener: {n_heard[0]} commands decoded; last command "
+          f"equal to the runtime's after the f32 cast; per step "
+          + serve_text(steps, served, rt.dt_mpc * 1e3) + f" [{label}]",
+          flush=True)
+    ep.close()
+
+    # 8c: a fresh socket, so that only the queued states are pending
+    ep = LCMEndpoint(UDPMulticast())
+    kn = rt.plan_np.knot
+    x = rt.result.Xbar[int(np.where((np.abs(kn.t - rt.dt_mpc) < 1e-9)
+                                    & (kn.is_terminal == 0))[0][0])]
+    t_last = rt.mpc_time
+    for k in range(1, N_QUEUED + 1):
+        client.publish("mpc_data", wire.hkd_data_lcmt(
+            reset_mpc=False, MS=True, mpctime=t_last + k * rt.dt_mpc,
+            contact=np.ones(4, np.int32), rpy=x[0:3][::-1], p=x[3:6],
+            omegaBody=x[6:9], vWorld=x[9:12], qJ=[0.0, -0.8, 1.6] * 4,
+            foot_placements=x[12:24]))
+    time.sleep(0.1)
+    (t, launches), = serve_steps(rt, ep, 1)
+    pump(client, 0.5)
+    want_t = t_last + N_QUEUED * rt.dt_mpc
+    got = [c for c in cmds if abs(c.mpc_times[0] - want_t) < 1e-9]
+    if abs(rt.mpc_time - want_t) > 1e-9 or not got:
+        fail(f"8c: the solve was not on the newest state (mpc_time "
+             f"{rt.mpc_time}, want {want_t})")
+    print(f"[8c] {N_QUEUED} states queued (mpctime {t_last + rt.dt_mpc:.2f}"
+          f"..{want_t:.2f}) then serve(max_msgs=1): 1 solve, on the newest "
+          f"(command mpc_times[0] {got[-1].mpc_times[0]:.2f}), build "
+          f"{t['build_ms']:.2f} + solve {t['solve_ms']:.2f} "
+          f"+ fetch {t['fetch_ms']:.2f} ms, launches {launches} [{label}]",
+          flush=True)
+    ep.close()
+    client.close()
+
+
+def phase_serve_mhpc(label, model):
+    """8d: MHPCRuntime at phase 7b's configuration with debug_intermtraj
+    serving the MHPC sim role for init + 3 updates; a client endpoint
+    counts the telemetry and checks the commands."""
+    cfg = mp.MHPCConfig()
+    if (cfg.dt_wb, cfg.dt_mpc) != (ex_mhpc.DT_WB, ex_mhpc.DT_MPC):
+        fail("the MHPC sim's dt or period are not the runtime's")
+    qr = QuadReference(synthetic_bound_reference_urdf(
+        duration=ex_mhpc.REF_DURATION))
+    qr.initialize(0.75)
+    rt = MHPCRuntime(qr, cfg, SolverOptions(), model=model, device=DEVICE,
+                     dtype=torch.float64, debug_intermtraj=True)
+    ep = LCMEndpoint(UDPMulticast())
+    n_pub = []      # intermediate trajectories this process published
+    publish = ep.publish
+
+    def counting(channel, msg):
+        if channel == "intermediate_ddp_traj":
+            n_pub.append(msg)
+        publish(channel, msg)
+    ep.publish = counting
+    client = LCMEndpoint(UDPMulticast())
+    cmds, info, interm = [], [], []
+    client.subscribe("MHPC_COMMAND", wire.MHPC_Command_lcmt, dedup(cmds))
+    client.subscribe("DDP_Solver_Info", wire.solver_info_lcmt, dedup(info))
+    client.subscribe("intermediate_ddp_traj", wire.solver_intermtraj_lcmt,
+                     dedup(interm))
+    sim = start(sim_args(ex_mhpc, N_MHPC_SERVED), "the MHPC sim")
+    dog = Watchdog("8d MHPC served loop", [sim])
+    served, al_iters = [], []
+    for i in range(N_MHPC_SERVED):
+        before = len(n_pub)
+        served += serve_steps(rt, ep, 1)
+        al_iters.append(len(n_pub) - before)
+    dog.stop()
+    steps = sim_steps(finish(sim), N_MHPC_SERVED)
+    pump(client, 1.0)
+    iters = int(rt.result["info"].iters)
+    if len(info) != N_MHPC_SERVED or len(cmds) < N_MHPC_SERVED:
+        fail(f"8d: {len(info)} solver_info and {len(cmds)} commands "
+             f"received for {N_MHPC_SERVED} solves")
+    kept = []       # the published ones, deduplicated as the client does
+    for m in n_pub:
+        dedup(kept)(None, m)
+    if len(interm) != len(kept) or al_iters[-1] != iters:
+        fail(f"8d: {len(interm)} intermediate trajectories received, "
+             f"{al_iters} published per solve, last solve {iters} AL x 1 DDP")
+    cmd = cmds[-1]
+    if not all(np.isfinite(np.asarray(getattr(cmd, f.name), float)).all()
+               for f in cmd.FIELDS):
+        fail("8d: the last MHPC command is not finite")
+    same_message(cmd, rt.command_message(), "8d MHPC_Command_lcmt")
+    n_bytes = len(cmd.encode())
+    print(f"[8d] MHPC served loop, MHPCRuntime B=1 f64 (mhpc config, "
+          f"debug_intermtraj) <- sim subprocess (WB dynamics of the "
+          f"synthetic quadruped), init + {N_MHPC_SERVED - 1} updates, sim z "
+          f"{min(s['z'] for s in steps):.3f}..{max(s['z'] for s in steps):.3f}"
+          f" m; received {len(info)} solver_info (one per solve) and "
+          f"{len(interm)} intermediate trajectories ({al_iters} AL "
+          f"iterations per solve; the updates run 1 DDP iteration each, "
+          f"iters {iters} in the last); MHPC_Command_lcmt {n_bytes} B in "
+          f"{len(frame(0, 'MHPC_COMMAND', cmd.encode()))} datagram(s), "
+          f"finite, equal to the runtime's after the f32 cast; per step "
+          + serve_text(steps, served, cfg.dt_mpc * 1e3) + f" [{label}]",
+          flush=True)
+    ep.close()
+    client.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -1237,6 +1630,9 @@ def main():
     mhpc = phase_mhpc(label, models)
     phase_mhpc_runtime(label, models[torch.float64])
     phase_cascade500(label, models[torch.float32])
+    phase_wire(label)
+    phase_serve_hkd(label)
+    phase_serve_mhpc(label, models[torch.float64])
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line

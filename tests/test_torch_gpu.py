@@ -1,9 +1,10 @@
 """The CUDA kernels on the card: each against its plain twin, and a small
 HKD solve through the kernels against the same solve through the twins;
 the whole-body and SRB model layer on the card against the CPU; the MHPC
-cascade's WB functions on the card against the CPU, and a small MHPC solve
+cascade's WB functions on the card against the CPU, a small MHPC solve
 through the sweep and linroll kernels against the same solve through
-their twins.
+their twins, and a small HKD runtime served over an in-memory transport
+launching the sweep and linroll kernels on every solve.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so it runs on a machine without it:
@@ -540,3 +541,60 @@ def test_mhpc_solve_through_kernels_matches_twins(cuda, robot):
     want = make_solver(fns, opts, plain_ops=True, **kw)(*args)
     assert (sw.sweep.launches, lr.linroll.launches) == after
     _same_solve(got, want)
+
+
+class _Loopback:
+    """An in-memory transport: what one endpoint publishes, it handles."""
+
+    def __init__(self):
+        self.queue, self.handlers = [], {}
+
+    def publish(self, channel, data):
+        self.queue.append((channel, bytes(data)))
+
+    def subscribe(self, channel, handler):
+        self.handlers.setdefault(channel, []).append(handler)
+
+    def handle(self, timeout=0.1):
+        if not self.queue:
+            return False
+        channel, data = self.queue.pop(0)
+        for h in self.handlers.get(channel, []):
+            h(channel, data)
+        return True
+
+    def close(self):
+        pass
+
+
+@pytest.mark.gpu
+def test_served_hkd_solves_launch_the_kernels(cuda):
+    """A small HKD runtime on the card served two states over an
+    in-memory transport: each solve launches the sweep and the linroll
+    kernels, and each state gets its command."""
+    from cafempc_tpu_torch.comms import lcm_wire as w
+    from cafempc_tpu_torch.comms.udpm import LCMEndpoint
+    from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    rt = HKDMPCRuntime(qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40),
+                       SolverOptions(), device=cuda, dtype=torch.float64)
+    ep = LCMEndpoint(_Loopback())
+    cmds = []
+    ep.subscribe("mpc_command", w.hkd_command_lcmt,
+                 lambda _c, m: cmds.append(m))
+    for i, t in enumerate((0.0, 0.02)):
+        ep.publish("mpc_data", w.hkd_data_lcmt(
+            reset_mpc=i == 0, MS=True, mpctime=t,
+            contact=np.ones(4, np.int32), p=[0.0, 0.0, 0.2486],
+            vWorld=np.zeros(3), rpy=np.zeros(3), omegaBody=np.zeros(3),
+            qJ=[0.0, -0.8, 1.6] * 4, foot_placements=np.zeros(12)))
+        before = (sw.sweep.launches, lr.linroll.launches)
+        assert rt.serve(ep, max_msgs=1) == 1
+        assert sw.sweep.launches > before[0]
+        assert lr.linroll.launches > before[1]
+        assert bool(rt.result.success)
+    while ep.handle():
+        pass
+    assert [c.mpc_times[0] for c in cmds] == [0.0, 0.02]
+    assert all(np.isfinite(c.hkd_controls).all() for c in cmds)

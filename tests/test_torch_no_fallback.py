@@ -307,3 +307,120 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_native_transport_raises_without_gxx(monkeypatch, tmp_path):
+    """Without g++ the native transport and the C++ listener raise; no
+    Python transport takes their place."""
+    from cafempc_tpu_torch.comms import native
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.NativeUDPMulticast()
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.build_listener()
+    assert native._LIB is None
+
+
+class _Queue:
+    """An in-memory transport holding what is published to it."""
+
+    def __init__(self):
+        self.queue, self.handlers = [], {}
+
+    def publish(self, channel, data):
+        self.queue.append((channel, bytes(data)))
+
+    def subscribe(self, channel, handler):
+        self.handlers.setdefault(channel, []).append(handler)
+
+    def handle(self, timeout=0.1):
+        if not self.queue:
+            return False
+        channel, data = self.queue.pop(0)
+        for h in self.handlers.get(channel, []):
+            h(channel, data)
+        return True
+
+    def close(self):
+        pass
+
+
+def test_serve_lets_a_failed_solve_out():
+    """An exception of a served solve leaves serve(); no command is
+    published for that state."""
+    import numpy as np
+    from cafempc_tpu_torch.comms import lcm_wire as w
+    from cafempc_tpu_torch.comms.udpm import LCMEndpoint
+    from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    rt = HKDMPCRuntime(qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40),
+                       SolverOptions(), device="cpu")
+
+    def broken(*args):
+        raise FloatingPointError("solve failed")
+    rt.solve_init = broken
+    ep = LCMEndpoint(_Queue())
+    ep.publish("mpc_data", w.hkd_data_lcmt(
+        reset_mpc=True, MS=True, mpctime=0.0, contact=np.ones(4, np.int32),
+        p=[0.0, 0.0, 0.25], vWorld=np.zeros(3), rpy=np.zeros(3),
+        omegaBody=np.zeros(3), qJ=[0.0, -0.8, 1.6] * 4,
+        foot_placements=np.zeros(12)))
+    with pytest.raises(FloatingPointError, match="solve failed"):
+        rt.serve(ep, max_msgs=1)
+    assert not any(c == "mpc_command" for c, _ in ep.t.queue)
+
+
+_FETCHES = ("cpu", "numpy", "item", "tolist")
+
+
+def test_solver_without_iter_callback_adds_no_host_fetch(monkeypatch):
+    """A small HKD solve copies nothing to the host without an
+    iter_callback (its only host reads are the loop tests' `bool`); with
+    one that fetches Xbar, one copy per AL outer iteration."""
+    from cafempc_tpu_torch.solver.hsddp import make_solver
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
+        qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40))
+    plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
+                                         "cpu", torch.float64)
+    args = (plan, broadcast_batch(pen, 1), Xbar0[0][None],
+            Xbar0[None], Ubar0[None])
+    calls = []
+    for name in _FETCHES:
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda self, *a, _r=real,
+                            _n=name, **k: calls.append(_n) or _r(self, *a,
+                                                                   **k))
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
+    make_solver(hp.make_hkd_fns(), opts)(*args)
+    assert calls == []
+    seen = []
+    make_solver(hp.make_hkd_fns(), opts, iter_callback=lambda X, U, it: (
+        seen.append(it), X.cpu()))(*args)
+    assert seen == list(range(len(seen))) and 1 <= len(seen) <= 2
+    assert calls == ["cpu"] * len(seen)
+
+
+@pytest.mark.parametrize("example", ["two_process_hkd_mpc",
+                                     "two_process_mhpc"])
+def test_examples_default_to_cuda_and_refuse_without_it(example,
+                                                        monkeypatch):
+    """`--role mpc` serves on cuda unless --device cpu is given; without a
+    CUDA device it refuses to start."""
+    import importlib
+    ex = importlib.import_module(f"cafempc_tpu_torch.examples.{example}")
+    started = []
+    monkeypatch.setattr(ex, "run_mpc", lambda *a: started.append(a))
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ex.main(["--role", "mpc"])
+        assert started == []
+    ex.main(["--role", "mpc", "--device", "cpu", "--steps", "3"])
+    assert started == [("cpu", "udpm", 3)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    ex.main(["--role", "mpc"])
+    assert started[-1][0] == "cuda"

@@ -37,6 +37,13 @@ MODULES = [
     "cafempc_tpu_torch.runtime.warm_start",
     "cafempc_tpu_torch.runtime.mpc",
     "cafempc_tpu_torch.runtime.mhpc_runtime",
+    "cafempc_tpu_torch.comms",
+    "cafempc_tpu_torch.comms.lcm_wire",
+    "cafempc_tpu_torch.comms.udpm",
+    "cafempc_tpu_torch.comms.native",
+    "cafempc_tpu_torch.examples",
+    "cafempc_tpu_torch.examples.two_process_hkd_mpc",
+    "cafempc_tpu_torch.examples.two_process_mhpc",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
