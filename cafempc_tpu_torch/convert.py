@@ -4,7 +4,8 @@ model constants.
 Both packages solve the same inputs: a plan, penalties and an initial
 trajectory built on the host in numpy go to the port with `from_numpy`,
 and any port result (a NamedTuple tree of tensors, e.g. `SolveResult`)
-comes back with `to_numpy` for comparison with the JAX package's.  The
+comes back with `to_numpy` for comparison with the JAX package's;
+`scenario` takes one scenario out of a batched result.  The
 whole-body models cross with `rbda_model_from_numpy` and
 `lane_model_from_numpy`, so that both packages can run one model edited in
 memory.
@@ -41,6 +42,17 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def scenario(tree, b):
+    """Scenario `b` of a NamedTuple tree of batched arrays or tensors
+    [B, ...] (e.g. a SolveResult or a SolverState): each leaf's row b."""
+    if isinstance(tree, tuple):
+        vals = [scenario(v, b) for v in tree]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*vals)
+        return type(tree)(vals)
+    return tree[b]
 
 
 def rbda_model_from_numpy(m, device, dtype):

@@ -257,6 +257,13 @@ def foot_jacobians(model: RBDAModel, q):
                                   model.fidx)
 
 
+def foot_kinematics_and_jacobians(model: RBDAModel, q):
+    """(foot_kinematics, foot_jacobians) from one forward kinematics."""
+    R, p, aw = fk(model, q)
+    pf = _foot_points(model, R, p)
+    return pf, _point_jacobians_batch(model, p, aw, pf, model.fidx)
+
+
 def foot_velocities(model: RBDAModel, q, v):
     """[..., nf, 3] world foot velocities (WBM.cpp:309-320)."""
     return _mv(foot_jacobians(model, q), v[..., None, :])

@@ -71,6 +71,27 @@ def build_mode_schedule(gait: PeriodicGait, final_time,
     return np.stack(contacts), np.asarray(times)
 
 
+def build_schedule_from_gaits(gaits, initial_stance=0.0):
+    """Concatenate one period of each listed gait into a single mode
+    schedule, mirroring GaitSchedule.addOneGait composition
+    (gait_schedule.py:48-70; used by gen_run_jump.py:30-48 to splice a
+    stretched-flight "jump" gait into a bound sequence).
+
+    Returns (contacts [n_modes, 4], switching_times [n_modes + 1]).
+    """
+    contacts = []
+    times = [0.0]
+    if initial_stance > 0:
+        contacts.append(np.array(QUAD_MODES["Stance"]))
+        times.append(initial_stance)
+    for g in gaits:
+        for i, m in enumerate(g.modes):
+            contacts.append(np.array(QUAD_MODES[m]))
+            times.append(times[-1] + (g.switching_times[i + 1]
+                                      - g.switching_times[i]))
+    return np.stack(contacts), np.asarray(times)
+
+
 def contact_at(contacts, times, t):
     i = np.searchsorted(times, t + 1e-9) - 1
     i = min(max(i, 0), len(contacts) - 1)

@@ -1,9 +1,10 @@
-"""Synthetic bound-gait reference (numpy only).
+"""Synthetic bound-gait reference and barrel-roll settings (numpy only).
 
 Stands in for the gait CSV `Reference/Data/bound/quad_reference.csv` that
 the HKD-MPC configuration reads; it is not a new capability.  It follows
-the JAX package's offline generator (`reference/generator.py`), whose IK
-needs the whole-body model, with two substitutions:
+the offline generator (`reference/generator.py`: its CoM plan, default
+footholds and swing curve), whose IK needs the whole-body model, with two
+substitutions:
 
   * gait schedule: `gait.py` `GAITS["bound"]` + `build_mode_schedule`;
   * CoM: a velocity ramp to `vx` at constant height `z`;
@@ -17,43 +18,27 @@ The result is in HKD (Cheetah-Software) leg order FR, FL, HR, HL with
 `qJd` zero, as `load_quad_reference(..., reorder=True)` would return it.
 `synthetic_bound_reference_urdf` returns the same gait in urdf leg order
 FL, FR, HL, HR, as the MHPC cascade reads the CSV (without `reorder`).
+
+`write_synthetic_br_settings` writes a stand-in for the barrel-roll
+trajectory optimization's settings files (see its docstring).
 """
 import dataclasses
+import json
+import os
 
 import numpy as np
 
 from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference import gait as gait_mod
+from cafempc_tpu_torch.reference.generator import (DEFAULT_FOOTHOLDS, CoMPlan,
+                                                   _swing_interp)
 from cafempc_tpu_torch.reference.quad_reference import (QuadReferenceData,
                                                         flip4, flip12)
+from cafempc_tpu_torch.solver.options import SolverOptions
 
-# Default foothold offsets w.r.t. CoM, urdf leg order FL, FR, HL, HR
-# (reference/generator.py:22-24)
-DEFAULT_FOOTHOLDS = np.array([
-    [0.22, 0.10, 0.0], [0.22, -0.10, 0.0],
-    [-0.18, 0.10, 0.0], [-0.18, -0.10, 0.0]])
 TRANSITION_TIME = 0.5    # CoM velocity ramp duration [s]
 INITIAL_STANCE = 0.05    # all-feet stance before the gait starts [s]
-
-
-def _com(t, vx, z):
-    """CoM position and velocity on the ramp 0 -> vx over TRANSITION_TIME."""
-    T = TRANSITION_TIME
-    if t < T:
-        return np.array([0.5 * t * t / T * vx, 0.0, z]), \
-            np.array([t / T * vx, 0.0, 0.0])
-    return np.array([vx * (t - 0.5 * T), 0.0, z]), np.array([vx, 0.0, 0.0])
-
-
-def _swing(p0, p1, h, s):
-    """Swing foot: cosine xy/z blend + sine height bump; (pos, d pos/ds)."""
-    blend = 0.5 * (1.0 - np.cos(np.pi * s))
-    dblend = 0.5 * np.pi * np.sin(np.pi * s)
-    p = p0 + blend * (p1 - p0)
-    p[2] += h * np.sin(np.pi * s)
-    dp = dblend * (p1 - p0)
-    dp[2] += h * np.pi * np.cos(np.pi * s)
-    return p, dp
 
 
 def planar_leg_ik(p_local, leg):
@@ -77,17 +62,18 @@ def synthetic_bound_reference(duration=2.0, vx=0.5, z=0.25,
     contacts, times = gait_mod.build_mode_schedule(
         gait_mod.GAITS["bound"], duration, INITIAL_STANCE, 0.0)
     leg_iv = [gait_mod.leg_intervals(contacts, times, l) for l in range(4)]
+    com = CoMPlan([0.0, 0.0, z], [vx, 0.0], z, TRANSITION_TIME)
 
     # footholds per leg-mode interval (urdf order), Raibert touchdown
     footholds = []
     for l in range(4):
         iv = leg_iv[l]
-        fhs = [_com(0.0, vx, z)[0] + DEFAULT_FOOTHOLDS[l]]
+        fhs = [com.pos(0.0) + DEFAULT_FOOTHOLDS[l]]
         for i in range(1, len(iv)):
             status, _, te = iv[i]
             if status == 0:
                 stance_T = (iv[i + 1][2] - te) if i + 1 < len(iv) else 0.2
-                cp, cv = _com(te, vx, z)
+                cp, cv = com.pos(te), com.vel(te)
                 off = np.minimum(cv[:2] * stance_T / 2.0, 0.2) \
                     + DEFAULT_FOOTHOLDS[l][:2]
                 fhs.append(np.array([cp[0] + off[0], cp[1] + off[1], 0.0]))
@@ -108,7 +94,7 @@ def synthetic_bound_reference(duration=2.0, vx=0.5, z=0.25,
     for k in range(n_rec):
         t = k * dt
         c = gait_mod.contact_at(contacts, times, t)
-        pos, vel = _com(t, vx, z)
+        pos, vel = com.pos(t), com.vel(t)
         pf = np.zeros(12)
         vf = np.zeros(12)
         sdur = np.zeros(4)
@@ -124,7 +110,8 @@ def synthetic_bound_reference(duration=2.0, vx=0.5, z=0.25,
                 p0 = footholds[l][i - 1] if i > 0 else footholds[l][0]
                 p1 = footholds[l][min(i + 1, len(footholds[l]) - 1)]
                 span = max(te - ts, 1e-9)
-                p, dp = _swing(p0, p1, swing_height, (t - ts) / span)
+                p, dp = _swing_interp(p0, p1, swing_height,
+                                      (t - ts) / span)
                 pf[3 * l:3 * l + 3] = p
                 vf[3 * l:3 * l + 3] = dp / span
         recs["body_state"].append(np.concatenate([pos, np.zeros(3), vel,
@@ -166,3 +153,56 @@ def synthetic_bound_reference_urdf(duration=2.0, **kwargs):
         foot_velocities=flip12(ref.foot_velocities), grf=flip12(ref.grf),
         torque=flip12(ref.torque), foot_heights=flip4(ref.foot_heights),
         contact=flip4(ref.contact), status_dur=flip4(ref.status_dur))
+
+
+# ReB blocks of the synthetic barrel-roll settings: (delta, delta_min, eps)
+BR_REB = {"Torque": (0.1, 0.1, 0.1), "JointVel": (0.1, 0.1, 0.1),
+          "Joint": (0.1, 0.1, 0.1), "MinHeight": (0.1, 0.1, 0.1),
+          "GRF": (0.1, 0.1, 0.3)}
+# TD_AL: the barrel-roll loader's own fallbacks (barrel_roll.py:237-240)
+BR_TD_AL = {"lambda": 0.0, "sigma": 20.0, "sigma_max": 1e4}
+
+
+def write_synthetic_br_settings(setting_dir):
+    """Write a stand-in for the reference's barrel-roll settings directory
+    (MHPC/MHPC-Trajopt/BarrelRoll/setting, absent from the repository)
+    into `setting_dir`: `br_cost_weights.JSON`, `br_constraint_params.info`
+    and `br_ddp_setting.info`, in the formats that
+    `problems/barrel_roll.py` and `solver/options.py` parse.  Returns
+    `setting_dir`.
+
+    They are not the robot's settings, and results on them are not the
+    reference's: every phase takes the MHPC whole-body constructor
+    defaults for q / r / qf (`mhpc_problem._default_weights`,
+    MHPCCost.h:12-38), the ReB blocks BR_REB, the touchdown AL BR_TD_AL,
+    and the ddp block the `SolverOptions()` defaults.  With the
+    reference's files in place of these, the same code runs on them."""
+    os.makedirs(setting_dir, exist_ok=True)
+    cfg = mp._default_weights(mp.MHPCConfig())
+    q, qf = cfg.wb_q, cfg.wb_qf
+    phase = dict(qw_qB=q[0:6], qw_qJ=q[6:9], qw_vB=q[18:24],
+                 qw_vJ=q[24:27], rw=float(cfg.wb_r[0]), qfw_qB=qf[0:6],
+                 qfw_qJ=qf[6:9], qfw_vB=qf[18:24], qfw_vJ=qf[24:27])
+    phase = {k: v if isinstance(v, float) else [float(x) for x in v]
+             for k, v in phase.items()}
+    with open(os.path.join(setting_dir, "br_cost_weights.JSON"), "w") as fh:
+        json.dump({f"cost_phase_{i + 1}": phase for i in range(6)}, fh,
+                  indent=2)
+
+    def block(name, kv):
+        return f"{name}\n{{\n" + "".join(
+            f"    {k} {str(v).lower() if isinstance(v, bool) else repr(v)}\n"
+            for k, v in kv.items()) + "}\n"
+    with open(os.path.join(setting_dir, "br_constraint_params.info"),
+              "w") as fh:
+        for name, (delta, delta_min, eps) in BR_REB.items():
+            fh.write(block(f"{name}_ReB", dict(
+                delta=delta, delta_min=delta_min, eps=eps)))
+        fh.write(block("TD_AL", BR_TD_AL))
+    opts = SolverOptions()
+    ddp = {f.name: getattr(opts, f.name)
+           for f in dataclasses.fields(SolverOptions)
+           if f.name not in ("ls_eps_min", "reg_max", "reg_min_init")}
+    with open(os.path.join(setting_dir, "br_ddp_setting.info"), "w") as fh:
+        fh.write(block("ddp", ddp))
+    return setting_dir

@@ -242,7 +242,8 @@ def _per_lane(v):
 
 def make_solver(fns, opts: SolverOptions, *, max_resets=16,
                 reg_floor=0.0, plain_ops=False, fused_forward=None,
-                fused_lq=None, trim_output=True, iter_callback=None):
+                fused_lq=None, trim_output=True, iter_callback=None,
+                info_len=INFO_LEN):
     """Build ``solve(plan, pen, x0, Xbar0, Ubar0)`` over a batch: a
     `SolveResult` (the JAX package's `trim_output=True` output), or with
     trim_output=False the final `SolverState` (whose traj carries, e.g.,
@@ -280,6 +281,8 @@ def make_solver(fns, opts: SolverOptions, *, max_resets=16,
     0-based index: the JAX package's io_callback, the reference's
     intermediate-trajectory publishing (MultiPhaseDDP.h:95-107).  Without
     it the loop makes no host fetch for it.
+    info_len: entries of the telemetry buffers (the initial rollout and
+    one per DDP iteration; later entries overwrite the last).
     """
     if not (opts.MS and max_resets):
         raise ValueError("the port runs the all-shooting multiple-shooting "
@@ -561,7 +564,7 @@ def make_solver(fns, opts: SolverOptions, *, max_resets=16,
         return tr._replace(Xbar=tr.X, Ubar=tr.U, Defect_bar=tr.Defect)
 
     def push_info(info: SolverInfo, cost, feas, maxt, maxp):
-        i = torch.clamp(info.n_entries, max=INFO_LEN - 1).long()[:, None]
+        i = torch.clamp(info.n_entries, max=info_len - 1).long()[:, None]
 
         def put(buf, v):
             return buf.scatter(1, i, v[:, None])
@@ -675,7 +678,7 @@ def make_solver(fns, opts: SolverOptions, *, max_resets=16,
         tr = init_traj(plan, xs, us, ys, Xbar0, Ubar0)
         zero = x0.new_zeros(Bsz)
         izero = torch.zeros(Bsz, dtype=torch.int32, device=x0.device)
-        buf = x0.new_zeros(Bsz, INFO_LEN)
+        buf = x0.new_zeros(Bsz, info_len)
         info = SolverInfo(cost_buf=buf, dyn_feas_buf=buf, eqn_feas_buf=buf,
                           ineq_feas_buf=buf, n_entries=izero, iters=izero,
                           ls_iters=izero, reg_iters=izero)

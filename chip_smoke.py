@@ -79,15 +79,48 @@ Phases (one line of output each, unless noted):
         serving the sim role of `two_process_mhpc` for init + 3 updates: a
         client counts solver_info (one per solve) and intermediate
         trajectories (one per AL iteration) and checks the last command;
+  9. the offline trajectory-optimization path on the synthetic quadruped,
+     f64 unless noted:
+     a. the reference generator and the acrobatic references on the card
+        (trot 2.5 s, pace 1.0 s, flypace 1.2 s, the in-place barrel roll,
+        the run-jump with 2 bounds either side): stance feet on their
+        targets to 1e-8, the CSV round trip's contacts equal, the roll
+        ending at 2 pi, one run-jump flight longer than 0.3 s; the seconds
+        of each;
+     b. the barrel-roll TO (131 knots, 5 resets) at B=1 on the synthetic
+        settings (`write_synthetic_br_settings`), 2 AL x 4 DDP (BR_OPTS),
+        16 gathered resets, through the sweep and linroll kernels: one
+        warm-up solve, one timed solve with the launch counts set to 0
+        just before and read just after; then the plain-twin solve (equal
+        success and iteration counts, cost within 1e-8 relative); then
+        one solve by stage (a synchronizing timer around each problem
+        function and kernel wrapper) and one WB linearization's device
+        profile;
+     c. both kernels against their twins on 9b's first sweep and linroll
+        operands (f64, 1e-10, equal ok flags), their ms per launch, twin
+        ms and bound;
+     d. the barrel roll under pushes: B=64, f32, the body's linear
+        velocity perturbed by N(0, 0.2^2) m/s per axis (seed 0), 2 AL x 2
+        DDP: ms per batched solve, successes (failures solved again in
+        f64), launches, idle share, peak memory; the twin solve (equal
+        success flags and iteration counts, cost within COST_RTOL);
+     e. the locomotion TO on 9a's flypace CSV: 1.0 s of WB knots, the
+        MHPC in-code default weights with the loco constraint set, 2 AL x
+        4 DDP;
+     f. the MHPC cascade over the in-place barrel-roll reference (with
+        the reference data's timing) in the window [0.25, 0.85] s, 8 AL:
+        a discovered flight phase, the touchdown AL armed at its terminal
+        knot, success with a finite cost, the largest roll angle;
 then the card's name and power limit, one JSON line of the kernels
 (`launches` each one's launches in phase 3's profiled solve, `ms` its
 device time per launch by torch.profiler, `event_ms` its CUDA-event time
 per wrapper call, host work included, and its bound: bytes over the HBM
 rate or operations over the f32 peak, whichever is larger; for the sweep
 and linroll the same figures at phase 7a's shape under `mhpc`, launches
-per profiled solve) and the final `{"ok": true, "device": ...}` line.  Exits
-non-zero, printing no result, without a CUDA device or when any phase
-fails.
+per profiled solve, and at phase 9b's under `barrel_roll`, f64, launches
+per solve, bound by the f64 peak) and the final `{"ok": true, "device":
+...}` line.  Exits non-zero, printing no result, without a CUDA device or
+when any phase fails.
 """
 import json
 import os
@@ -106,6 +139,9 @@ from cafempc_tpu_torch.comms import lcm_wire as wire
 from cafempc_tpu_torch.comms import native
 from cafempc_tpu_torch.comms.udpm import (DEFAULT_ADDR, LCMEndpoint,
                                           UDPMulticast, frame)
+from cafempc_tpu_torch.examples import barrel_roll_demo as ex_br
+from cafempc_tpu_torch.examples import br_reference_demo as ex_brref
+from cafempc_tpu_torch.examples import loco_to_demo as ex_loco
 from cafempc_tpu_torch.examples import two_process_hkd_mpc as ex_hkd
 from cafempc_tpu_torch.examples import two_process_mhpc as ex_mhpc
 from cafempc_tpu_torch.models import hkd, rbda, srb, synthetic_robot, wb_lane
@@ -116,13 +152,18 @@ from cafempc_tpu_torch.ops import hkd_trial as hkd_trial_mod
 from cafempc_tpu_torch.ops import linroll as linroll_mod
 from cafempc_tpu_torch.ops import sweep as sweep_mod
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch, make_batched_solver
+from cafempc_tpu_torch.problems import barrel_roll as br
 from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
+from cafempc_tpu_torch.problems import loco_problem as lp
 from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference import acrobatic, generator
 from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
+                                                        load_quad_reference,
                                                         wb_state_ref_at)
 from cafempc_tpu_torch.reference.synthetic import (
-    synthetic_bound_reference, synthetic_bound_reference_urdf)
+    synthetic_bound_reference, synthetic_bound_reference_urdf,
+    write_synthetic_br_settings)
 from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver.options import SolverOptions
@@ -141,6 +182,8 @@ MAX_RESETS = 16
 # HBM bytes/s and float32 FLOP/s outside the tensor cores (an FMA is 2)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# float64 FLOP/s outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F64 = 34e12
 # the kernels' wrappers and their launch counters
 KERNELS = {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll,
            "hkd_lq": hkd_lq_mod.hkd_lq, "hkd_trial": hkd_trial_mod.hkd_trial}
@@ -212,24 +255,28 @@ def time_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def kernel_ms(fn, n, kernel):
+def kernel_ms(fn, n, kernel, tries=5):
     """Device ms per launch of the CUDA kernel whose name contains `kernel`,
-    by torch.profiler over n calls of fn: summed over the launches it
-    recorded by name, divided by their count (a run of launches has been
-    seen to come back with a few of them missing)."""
+    by torch.profiler over runs of n calls of fn: summed over the launches
+    it recorded by name, divided by their count.  A run has been seen to
+    come back with some of its launches missing (4 of 20 once), so runs
+    are repeated, up to `tries`, until n // 2 launches were recorded."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    if len(us) < n // 2:
-        fail(f"the profiler saw {len(us)} launches of {kernel}, not {n}")
-    return sum(us) / len(us) / 1e3
+    us = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us += [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.name]
+        if len(us) >= n // 2:
+            return sum(us) / len(us) / 1e3
+    fail(f"the profiler saw {len(us)} launches of {kernel} in {tries} runs "
+         f"of {n}")
 
 
 def both_ms(fn, n, kernel):
@@ -244,10 +291,10 @@ def nbytes(inputs, outputs):
                if torch.is_tensor(t))
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=PEAK_F32):
     """(least ms on the card, which bound) from bytes over the HBM rate
-    and float32 operations over the CUDA cores' peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    and operations over the CUDA cores' peak for their type (`peak`)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1009,10 +1056,10 @@ def mhpc_models():
                 for dt in (torch.float32, torch.float64)}
 
 
-def capturing_solver(fns, **kw):
-    """make_batched_solver(fns, MHPC_OPTS, **kw) whose sweep and linroll
-    calls also keep a copy of their first call's operands: the kernels'
-    inputs at the solve's own shapes and values."""
+def capturing_solver(fns, opts=MHPC_OPTS, **kw):
+    """make_batched_solver(fns, opts, **kw) whose sweep and linroll calls
+    also keep a copy of their first call's operands: the kernels' inputs
+    at the solve's own shapes and values."""
     seen, real = {}, {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll}
 
     def keep(name):
@@ -1023,28 +1070,30 @@ def capturing_solver(fns, **kw):
         return call
     sweep_mod.sweep, linroll_mod.linroll = keep("sweep"), keep("linroll")
     try:
-        return make_batched_solver(fns, MHPC_OPTS, **kw), seen
+        return make_batched_solver(fns, opts, **kw), seen
     finally:
         sweep_mod.sweep, linroll_mod.linroll = real["sweep"], real["linroll"]
 
 
-def path_kernel_figures(seen, label):
-    """The sweep and linroll kernels on the MHPC solve's captured operands:
-    against their twins in f32 (ok flags equal) and, on the same operands
-    in f64, to 1e-10; device ms per launch by the profiler, twin ms and
-    bound."""
+def path_kernel_figures(seen, label, tag="7a", what="mhpc",
+                        dtypes=(torch.float32, torch.float64)):
+    """The sweep and linroll kernels on a solve's captured operands, in
+    each of `dtypes`: against their twins (ok flags equal; f64 to 1e-10);
+    in the first of them, device ms per launch by the profiler, twin ms
+    and bound."""
     out = {}
     ins = seen["sweep"]
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         a = tuple(t.to(dtype) if torch.is_tensor(t) and t.is_floating_point()
                   else t for t in ins)
         got, want = sweep_mod.sweep(*a), sweep_mod.sweep_reference(*a)
         ok_k, ok_r = got[7] > 0.5, want[7] > 0.5
         if not torch.equal(ok_k, ok_r):
-            fail(f"sweep ok flags differ on the mhpc operands ({dtype}): "
+            fail(f"sweep ok flags differ on the {what} operands ({dtype}): "
                  f"kernel {int(ok_k.sum())}, twin {int(ok_r.sum())} ok")
         if not bool(ok_k.any()):
-            fail(f"no scenario's sweep is ok on the mhpc operands ({dtype})")
+            fail(f"no scenario's sweep is ok on the {what} operands "
+                 f"({dtype})")
         errs = {n: errors(got[i], want[i], ok_k)
                 for i, n in ((0, "G"), (1, "H"), (2, "K"), (3, "dU"),
                              (8, "dv"))}
@@ -1057,8 +1106,9 @@ def path_kernel_figures(seen, label):
                             ok_k)
         worst = max(e[1] for e in errs.values())
         n = str(dtype)[6:]
-        print(f"[7a] sweep + linroll kernels vs twins on the mhpc solve's "
-              f"first sweep operands (B={ok_k.numel()}, N={a[2].shape[1]}, "
+        print(f"[{tag}] sweep + linroll kernels vs twins on the {what} "
+              f"solve's first sweep operands (B={ok_k.numel()}, "
+              f"N={a[2].shape[1]}, "
               f"xs={a[2].shape[2]}, us={a[3].shape[2]}, {n}): ok "
               f"{int(ok_k.sum())} in both; max err (abs, normalized) "
               + " ".join(f"{k}=({e[0]:.3e}, {e[1]:.3e})"
@@ -1066,18 +1116,19 @@ def path_kernel_figures(seen, label):
               flush=True)
         if dtype == torch.float64 and not worst <= 1e-10:
             fail(f"the f64 sweep or linroll disagrees with its twin on the "
-                 f"mhpc operands: {worst:.3e}")
-        if dtype == torch.float32:
+                 f"{what} operands: {worst:.3e}")
+        if dtype == dtypes[0]:
+            peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
             out["sweep_err"] = max(errs[k][0] for k in ("G", "H", "K", "dU",
                                                         "dv"))
             out["linroll_err"] = errs["dX"][0]
-            out["sweep_bound"] = bound(nbytes(a, got), sweep_flops(a))
+            out["sweep_bound"] = bound(nbytes(a, got), sweep_flops(a), peak)
             out["sweep_ms"] = kernel_ms(lambda: sweep_mod.sweep(*a), 20,
                                         "sweep_kernel")
             out["sweep_plain_ms"] = time_ms(
                 lambda: sweep_mod.sweep_reference(*a), 2)
             out["linroll_bound"] = bound(nbytes(lr_args, (dX,)),
-                                         2.0 * M.numel() + c.numel())
+                                         2.0 * M.numel() + c.numel(), peak)
             out["linroll_ms"] = kernel_ms(
                 lambda: linroll_mod.linroll(*lr_args), 50, "linroll_kernel")
             out["linroll_plain_ms"] = time_ms(
@@ -1602,6 +1653,353 @@ def phase_serve_mhpc(label, model):
     client.close()
 
 
+# Phase 9: the offline trajectory-optimization path on the synthetic
+# quadruped, f64 unless it says otherwise
+# the barrel roll's budget: the golden's 6 AL x 8 DDP
+# (tools/freeze_goldens.py:115) takes ~70 s a solve on the card, three
+# solves over phase 9's time; barrel_roll_demo runs it
+BR_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=4)
+BR_RTOL = 1e-8          # kernel vs twin barrel-roll solve, f64
+PUSH_B = 64
+PUSH_SIGMA = 0.2        # m/s, per axis of the body's linear velocity
+PUSH_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
+LOCO_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=4)
+IK_TOL = 1e-8           # stance foot against its target
+RUN_JUMP_FLIGHT_S = 0.3  # the run-jump's one flight is longer than this
+
+
+def info_text(info, b=0):
+    """Iterations and the first and last cost of scenario b."""
+    n = min(int(info.n_entries[b]), info.cost_buf.shape[1])
+    return (f"iters {int(info.iters[b])}, ls {int(info.ls_iters[b])}, reg "
+            f"{int(info.reg_iters[b])}, cost {float(info.cost_buf[b, 0]):.6g}"
+            f" -> {float(info.cost_buf[b, n - 1]):.6g}")
+
+
+def roll_max(Xbar, plan_np):
+    """The largest roll angle x[5] over the plan's active knots, per
+    scenario."""
+    act = torch.as_tensor(plan_np.knot.active > 0, device=Xbar.device)
+    return Xbar[:, act, 5].amax(1)
+
+
+def phase_references(label, model, tmp):
+    """9a: the generator and the acrobatic references on the card; checks
+    the stance feet against their targets, the CSV round trip, the roll
+    and the run-jump's one flight.  Returns the flypace CSV's path."""
+    refs = {
+        "trot 2.5 s": lambda: generator.generate_reference(
+            "trot", duration=2.5, vx=0.5, transition_time=1.0, model=model),
+        "pace 1.0 s": lambda: generator.generate_reference(
+            "pace", duration=1.0, vx=0.2, model=model),
+        "flypace 1.2 s": lambda: generator.generate_reference(
+            "flypace", duration=1.2, model=model),
+        "barrel roll": lambda: acrobatic.generate_barrel_roll_reference(
+            model=model),
+        "run-jump 2+2 bounds": lambda: acrobatic.generate_run_jump_reference(
+            2, 2, model=model)}
+    texts, made = [], {}
+    for name, make in refs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = made[name] = make()
+        sec = time.perf_counter() - t0
+        q = torch.as_tensor(np.concatenate([ref.body_state[:, :6], ref.qJ],
+                                           1), device=DEVICE)
+        pf = rbda.foot_kinematics(model, q).reshape(len(ref), 12).cpu()
+        stance = np.repeat(ref.contact > 0, 3, axis=1)
+        err = float(np.abs(pf.numpy() - ref.foot_placements)[stance].max())
+        csv = os.path.join(tmp, name.split()[0] + ".csv")
+        generator.write_quad_reference_csv(ref, csv)
+        same = np.array_equal(load_quad_reference(csv).contact, ref.contact)
+        texts.append(f"{name}: {len(ref)} knots in {sec:.2f} s, stance foot "
+                     f"err {err:.2e}, csv contacts equal {same}")
+        if not (err <= IK_TOL and same and np.isfinite(ref.qJ).all()):
+            fail(f"the {name} reference is off: foot err {err:.3e}, csv "
+                 f"contacts equal {same}")
+    roll_end = made["barrel roll"].body_state[-1, 5]
+    fly = made["run-jump 2+2 bounds"].contact.sum(1) == 0
+    edges = np.flatnonzero(np.diff(np.r_[0, fly, 0]))
+    flights = (edges[1::2] - edges[0::2]) * made["run-jump 2+2 bounds"].dt
+    print(f"[9a] references on the card (f64, IK {generator.N_IK_STEPS} "
+          f"Newton steps a knot): " + "; ".join(texts) + f"; roll ends at "
+          f"{roll_end:.6f} rad; run-jump flights > {RUN_JUMP_FLIGHT_S} s: "
+          f"{int((flights > RUN_JUMP_FLIGHT_S).sum())} [{label}]",
+          flush=True)
+    if abs(roll_end - 2 * np.pi) > 1e-12 \
+            or int((flights > RUN_JUMP_FLIGHT_S).sum()) != 1:
+        fail("the barrel roll or the run-jump reference has the wrong shape")
+    return os.path.join(tmp, "flypace.csv")
+
+
+def phase_barrel_roll(label, model, setting_dir):
+    """9b: the barrel-roll TO at B=1 in f64 on the synthetic settings,
+    golden budget, through the sweep and linroll kernels (one warm-up
+    solve keeping the first sweep's and linroll's operands, one timed
+    solve with the counts set to 0 just before and read just after), then
+    through the plain twins; 9c: the two kernels against their twins on
+    the warm-up's operands.  Returns the kernels' figures at the
+    barrel-roll shape."""
+    plan_np, _, args = ex_br.problem(setting_dir, DEVICE)
+    fns = br.make_barrel_roll_fns(model)
+    kw = dict(max_resets=MAX_RESETS)
+    solve_c, seen = capturing_solver(fns, BR_OPTS, **kw)
+    t0 = time.perf_counter()
+    solve_c(*args).cost.cpu()
+    warm_s = time.perf_counter() - t0
+    solve = make_batched_solver(fns, BR_OPTS, **kw)
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+    launches = read_counts()
+    n_reset = int(plan_np.step.is_reset.sum())
+    print(f"[9b] barrel-roll TO ({len(plan_np.step.active)} steps: "
+          f"{n_reset} resets, {plan_np.knot.is_terminal.sum():.0f} phases), "
+          f"B=1 f64, {BR_OPTS.max_AL_iter} AL x {BR_OPTS.max_DDP_iter} DDP: "
+          f"solve {ms[0] / 1e3:.2f} s (warm-up {warm_s:.2f} s); success "
+          f"{bool(success[0])}, {info_text(res.info)}, feas "
+          f"{float(res.feas[0]):.4g}, max_tconstr "
+          f"{float(res.max_tconstr[0]):.4g}, roll max "
+          f"{float(roll_max(res.Xbar, plan_np)[0]):.4f} rad; kernel launches "
+          f"in the solve {launches} [{label}]", flush=True)
+    if not (bool(success[0]) and bool(torch.isfinite(cost).all())):
+        fail("the barrel-roll solve failed")
+    missed = [k for k in PATH_KERNELS if launches[k] == 0]
+    if missed:
+        fail(f"kernels of the barrel-roll path were never launched: {missed}")
+
+    solve_p = make_batched_solver(fns, BR_OPTS, plain_ops=True, **kw)
+    reset_counts()
+    res_p, cost_p, success_p, ms_p = timed_solves(solve_p, args, 1,
+                                                  warmup=False)
+    if any(read_counts().values()):
+        fail(f"the plain-twin barrel roll launched kernels: {read_counts()}")
+    same_it = all(torch.equal(getattr(res.info, f), getattr(res_p.info, f))
+                  for f in ("iters", "ls_iters", "reg_iters"))
+    dc = float(((cost - cost_p) / cost_p).abs().max())
+    dX = float((res.Xbar - res_p.Xbar).abs().max())
+    print(f"[9b] barrel roll through the plain twins: solve "
+          f"{ms_p[0] / 1e3:.2f} s; success {bool(success_p[0])}, "
+          f"{info_text(res_p.info)}; kernel vs plain: iteration counts equal "
+          f"{same_it}, max |dXbar| {dX:.3e}, cost rel diff {dc:.3e} (tol "
+          f"{BR_RTOL:g}) [{label}]", flush=True)
+    if not (torch.equal(success, success_p) and same_it and dc <= BR_RTOL):
+        fail("the barrel-roll kernel solve disagrees with its twin solve")
+    stage_text(label, fns, args, res)
+    figs = path_kernel_figures(seen, label, "9c", "barrel-roll",
+                               (torch.float64,))
+    figs["launches"] = launches
+    return figs
+
+
+def stage_clock(fns, args, **kw):
+    """One barrel-roll solve with a synchronizing timer around each problem
+    function and each kernel wrapper: ({stage: [ms, calls]}, wall ms)."""
+    clock = {}
+
+    def timed(name, f):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a)
+            torch.cuda.synchronize()
+            c = clock.setdefault(name, [0.0, 0])
+            c[0] += (time.perf_counter() - t0) * 1e3
+            c[1] += 1
+            return out
+        return call
+    real = {"sweep": sweep_mod.sweep, "linroll": linroll_mod.linroll}
+    sweep_mod.sweep = timed("sweep", real["sweep"])
+    linroll_mod.linroll = timed("linroll", real["linroll"])
+    try:
+        solve = make_batched_solver(fns._replace(**{
+            n: timed(n, getattr(fns, n)) for n in fns._fields}), BR_OPTS,
+            **kw)
+    finally:
+        sweep_mod.sweep, linroll_mod.linroll = real["sweep"], real["linroll"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve(*args).cost.cpu()
+    return clock, (time.perf_counter() - t0) * 1e3
+
+
+def stage_text(label, fns, args, res):
+    """9b's solve by stage, and one WB linearization on the card (device
+    only) at the solved trajectory."""
+    clock, wall = stage_clock(fns, args, max_resets=MAX_RESETS)
+    rest = wall - sum(ms for ms, _ in clock.values())
+    plan = args[0]
+    prof = profile_device(lambda: fns.dyn_partials(
+        res.Xbar[:, :-1], res.Ubar, plan.step)[0].cpu(), host=False)
+    print(f"[9b] one barrel-roll solve by stage (a synchronizing timer "
+          f"around each problem function and kernel wrapper; {wall:.1f} ms "
+          f"clocked): " + ", ".join(
+              f"{k} {ms:.1f} ms x{n} ({ms / wall:.1%})" for k, (ms, n) in
+              sorted(clock.items(), key=lambda kv: -kv[1][0]))
+          + f", the rest of the solver {rest:.1f} ms; one WB linearization "
+          f"(B=1, {plan.n_steps} knots): "
+          + profile_text(prof, "dyn_partials (device only)")
+          + f" [{label}]", flush=True)
+
+
+def phase_barrel_roll_push(label, model32, model64, setting_dir):
+    """9d: the batched barrel roll under push disturbances (BASELINE
+    config 4): B=64, f32, the body's linear velocity perturbed by
+    N(0, PUSH_SIGMA^2) per axis (seed 0); one timed solve, one profiled
+    on the device; failures solved again in f64; the twin solve."""
+    plan_np, _, args = ex_br.problem(setting_dir, DEVICE, torch.float32)
+    x0 = np.tile(br.initial_state(), (PUSH_B, 1))
+    x0[:, 18:21] += np.random.default_rng(SEED).normal(0, PUSH_SIGMA,
+                                                       (PUSH_B, 3))
+    plan, pen, _, Xbar0, Ubar0 = args
+    args = (plan, broadcast_batch(convert.scenario(pen, 0), PUSH_B),
+            torch.as_tensor(x0, device=DEVICE, dtype=torch.float32),
+            broadcast_batch(Xbar0[0], PUSH_B),
+            broadcast_batch(Ubar0[0], PUSH_B))
+    fns = br.make_barrel_roll_fns(model32)
+    kw = dict(max_resets=MAX_RESETS)
+    solve = make_batched_solver(fns, PUSH_OPTS, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+    launches = read_counts()
+    prof = profile_device(lambda: solve(*args).cost.cpu(), host=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = success & torch.isfinite(cost)
+    rolls = roll_max(res.Xbar, plan_np)[ok.to(DEVICE)]
+    print(f"[9d] barrel roll under pushes, B={PUSH_B} f32, "
+          f"{PUSH_OPTS.max_AL_iter} AL x {PUSH_OPTS.max_DDP_iter} DDP: "
+          f"{ms[0]:.1f} ms per batched solve ({PUSH_B / (ms[0] / 1e3):.2f} "
+          f"solves/s); {solve_text(res, cost, success)}; roll max "
+          f"{float(rolls.min()):.3f}-{float(rolls.max()):.3f} rad over the "
+          f"successes; kernel launches {launches}; "
+          f"{profile_text(prof, 'one solve (device only)')}; peak device "
+          f"memory {peak:.2f} GiB [{label}]", flush=True)
+    missed = [k for k in PATH_KERNELS if launches[k] == 0]
+    if missed or not bool(ok.any()):
+        fail(f"the pushed barrel roll: no success, or kernels never "
+             f"launched: {missed}")
+    bad = ~ok
+    if bool(bad.any()):
+        idx = bad.nonzero().flatten().to(DEVICE)
+        _, _, (plan64, pen64, _, Xbar64, Ubar64) = ex_br.problem(setting_dir,
+                                                                 DEVICE)
+        n = idx.numel()
+        res64 = make_batched_solver(br.make_barrel_roll_fns(model64),
+                                    PUSH_OPTS, **kw)(
+            plan64, broadcast_batch(convert.scenario(pen64, 0), n),
+            args[2][idx].double(), broadcast_batch(Xbar64[0], n),
+            broadcast_batch(Ubar64[0], n))
+        ok64 = res64.success.cpu() & torch.isfinite(res64.cost.cpu())
+        print(f"[9d] the {int(bad.sum())} scenarios that fail in f32 "
+              f"({bad.nonzero().flatten().tolist()}), solved in f64: success "
+              f"{ok64.tolist()} [{label}]", flush=True)
+
+    solve_p = make_batched_solver(fns, PUSH_OPTS, plain_ops=True, **kw)
+    reset_counts()
+    res_p, cost_p, success_p, ms_p = timed_solves(solve_p, args, 1,
+                                                  warmup=False)
+    if any(read_counts().values()):
+        fail(f"the plain-twin pushed solve launched kernels: "
+             f"{read_counts()}")
+    both = torch.isfinite(cost) & torch.isfinite(cost_p)
+    dc = float(((cost - cost_p) / cost_p)[both].abs().max())
+    same_it = torch.equal(res.info.iters, res_p.info.iters)
+    same_ls = torch.equal(res.info.ls_iters, res_p.info.ls_iters)
+    print(f"[9d] pushed barrel roll through the plain twins: {ms_p[0]:.1f} "
+          f"ms; {solve_text(res_p, cost_p, success_p)}; kernel vs plain: "
+          f"success flags equal {torch.equal(success, success_p)}, iters "
+          f"equal per scenario {same_it} (ls iters {same_ls}), cost rel "
+          f"diff {dc:.3e} (tol {COST_RTOL:g}) [{label}]", flush=True)
+    if not (torch.equal(success, success_p) and same_it
+            and dc <= COST_RTOL):
+        fail("the pushed barrel roll disagrees with its twin solve")
+
+
+def phase_loco(label, model, csv):
+    """9e: the locomotion TO on the generated flypace reference: plan_dur_wb
+    1.0 s, the MHPC in-code default weights with the loco constraint set,
+    B=1, f64."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    s, plan, meta, _ = lp.solve_loco_to(
+        csv, model, cfg=ex_loco.default_config(), opts=LOCO_OPTS,
+        device=DEVICE)
+    cost, success = s.cost.cpu(), s.success.cpu()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    st = plan.step
+    n_dyn = int((st.active * (1 - st.is_reset)).sum())
+    print(f"[9e] loco TO (flypace, {len(meta['wb_phases'])} WB phases, "
+          f"{n_dyn} WB dynamics steps, {int(st.is_reset.sum())} resets), B=1 "
+          f"f64, {LOCO_OPTS.max_AL_iter} AL x {LOCO_OPTS.max_DDP_iter} DDP: "
+          f"{sec:.2f} s; success {bool(success[0])}, {info_text(s.info)}, "
+          f"feas {float(s.feas[0]):.4g}, max_pconstr "
+          f"{float(s.max_pconstr[0]):.4g}, max_tconstr "
+          f"{float(s.max_tconstr[0]):.4g}; kernel launches {launches} "
+          f"[{label}]", flush=True)
+    if n_dyn != 100 or not (bool(success[0]) and bool(
+            torch.isfinite(cost).all())):
+        fail("the loco TO failed")
+    if any(launches[k] == 0 for k in PATH_KERNELS):
+        fail(f"kernels of the loco path were never launched: {launches}")
+
+
+def phase_br_reference(label, model):
+    """9f: the MHPC cascade over the in-place barrel-roll reference, window
+    [0.25, 0.85] s, B=1, f64, the in-code MHPC defaults."""
+    t0 = time.perf_counter()
+    ref = ex_brref.reference(model)
+    ref_s = time.perf_counter() - t0
+    cfg, plan_np, meta, args = ex_brref.problem(ref, DEVICE)
+    solve = make_batched_solver(
+        mp.make_mhpc_fns_segmented(cfg, model),
+        SolverOptions(max_AL_iter=8), max_resets=ex_brref.MAX_RESETS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = convert.scenario(convert.to_numpy(solve(*args)), 0)
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    flights, armed, roll = ex_brref.checks(res, plan_np, meta)
+    print(f"[9f] MHPC cascade over the in-place barrel-roll reference "
+          f"(generated in {ref_s:.2f} s; window [{ex_brref.T_START}, "
+          f"{ex_brref.T_START + ex_brref.PLAN_DUR_WB}] s, WB phases "
+          f"{[(p[2], p[3].tolist()) for p in meta['wb_phases']]}), B=1 f64, 8"
+          f" AL: {sec:.2f} s; success {bool(res.success)}, cost "
+          f"{float(res.cost):.6g}, feas {float(res.feas):.4g}, iters "
+          f"{int(res.info.iters)}; flight phases {len(flights)}, touchdown "
+          f"AL entries armed {armed}; roll max {roll:.4f} rad; kernel "
+          f"launches {launches} [{label}]", flush=True)
+    if not (flights and armed >= 4 and bool(res.success)
+            and np.isfinite(float(res.cost))):
+        fail("the barrel-roll reference solve failed its checks")
+    if any(launches[k] == 0 for k in PATH_KERNELS):
+        fail(f"kernels of the br-reference path were never launched: "
+             f"{launches}")
+
+
+def phase_trajopt(label):
+    """Phase 9 (9a-9f) on the synthetic quadruped and the synthetic
+    barrel-roll settings, in a temporary directory.  Returns the sweep's
+    and linroll's figures at the barrel-roll shape."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        urdf = synthetic_robot.write_synthetic_quadruped_urdf(tmp)
+        setting_dir = write_synthetic_br_settings(os.path.join(tmp, "br"))
+        m64 = wbm.load_model(urdf, DEVICE, torch.float64)
+        m32 = wbm.load_model(urdf, DEVICE, torch.float32)
+        csv = phase_references(label, m64, tmp)
+        figs = phase_barrel_roll(label, m64, setting_dir)
+        phase_barrel_roll_push(label, m32, m64, setting_dir)
+        phase_loco(label, m64, csv)
+        phase_br_reference(label, m64)
+    print(f"[9] phase 9 took {time.perf_counter() - t0:.1f} s [{label}]",
+          flush=True)
+    return figs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -1633,6 +2031,7 @@ def main():
     phase_wire(label)
     phase_serve_hkd(label)
     phase_serve_mhpc(label, models[torch.float64])
+    trajopt = phase_trajopt(label)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line
@@ -1641,16 +2040,18 @@ def main():
             ("hkd_lq", "cafempc_tpu/ops/fused_hkd_lq.py:437/521"),
             ("hkd_trial", "cafempc_tpu/ops/fused_hkd_trial.py:317/416")]
 
-    def at_mhpc(name):
-        """The kernel on phase 7a's path, at the mhpc solve's shape."""
+    def on_paths(name):
+        """The kernel on phase 7a's path at the mhpc solve's shape (f32),
+        and on phase 9b's at the barrel roll's (f64)."""
         if name not in PATH_KERNELS:
             return {}
-        return {"mhpc": {
-            "launches": mhpc["launches"][name],
-            "max_abs_err": mhpc[f"{name}_err"], "ms": mhpc[f"{name}_ms"],
-            "plain_ms": mhpc[f"{name}_plain_ms"],
-            "bound_ms": mhpc[f"{name}_bound"][0],
-            "bound_by": mhpc[f"{name}_bound"][1], "library_ms": None}}
+        return {path: {
+            "launches": figs["launches"][name],
+            "max_abs_err": figs[f"{name}_err"], "ms": figs[f"{name}_ms"],
+            "plain_ms": figs[f"{name}_plain_ms"],
+            "bound_ms": figs[f"{name}_bound"][0],
+            "bound_by": figs[f"{name}_bound"][1], "library_ms": None}
+            for path, figs in (("mhpc", mhpc), ("barrel_roll", trajopt))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"cafempc_tpu_torch/ops/csrc/{name}.cu",
@@ -1661,7 +2062,7 @@ def main():
          "bound_ms": f32[f"{name}_bound"][0],
          "bound_by": f32[f"{name}_bound"][1],
          # no single PyTorch call computes any of the four functions
-         "library_ms": None, **at_mhpc(name)}
+         "library_ms": None, **on_paths(name)}
         for name, replaces in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

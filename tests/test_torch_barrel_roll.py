@@ -1,0 +1,246 @@
+"""The port's barrel-roll trajectory optimization (`problems/barrel_roll.py`)
+against the JAX package, f64 on CPU, on the synthetic quadruped URDF and
+the synthetic settings (`reference/synthetic.write_synthetic_br_settings`)
+written for the test:
+
+  * the settings loaders, and every array of the plan, the penalties and
+    the initial trajectory, equal;
+  * every problem function and its partials at a knot of each of the 6
+    phases, the 6 phase-terminal knots and the 5 reset steps (2 with a
+    touchdown impact, 3 identities), on seeded perturbed states: 1e-10
+    normalized by the JAX value's largest entry;
+  * the whole 131-knot solve at 1 AL x 2 DDP: the port gathers the 5
+    reset steps (`max_resets=16`), the JAX solve selects dynamics or reset
+    at every step (`make_solver(..., max_resets=None)`), both with the
+    sequential line search.  The port's sweep runs with the JAX un-fused
+    sweep's exact Cholesky of Quu - 1e-9 I in place of the Pallas pivot
+    scaling (as in test_torch_mhpc_solve.py): Xbar, Ubar and the cost to
+    1e-8, iteration counts equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cafempc_tpu.models import wbm as jwbm
+from cafempc_tpu.problems import barrel_roll as jbr
+from cafempc_tpu.solver.hsddp import make_solver as jax_make_solver
+from cafempc_tpu.solver.options import SolverOptions as JaxSolverOptions
+from cafempc_tpu.solver.plan import host_plan_to_device as jax_to_device
+from cafempc_tpu_torch.convert import from_numpy, to_numpy
+from cafempc_tpu_torch.models import synthetic_robot, wbm
+from cafempc_tpu_torch.ops import sweep as sweep_mod
+from cafempc_tpu_torch.parallel.mesh import broadcast_batch
+from cafempc_tpu_torch.problems import barrel_roll as br
+from cafempc_tpu_torch.reference.synthetic import write_synthetic_br_settings
+from cafempc_tpu_torch.solver.hsddp import make_solver
+from cafempc_tpu_torch.solver.options import SolverOptions
+
+F64 = torch.float64
+TOL = 1e-10
+SOLVE_TOL = 1e-8
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("br")
+    return (synthetic_robot.write_synthetic_quadruped_urdf(str(d)),
+            write_synthetic_br_settings(str(d / "setting")))
+
+
+@pytest.fixture(scope="module")
+def models(files):
+    return jwbm.load_model(files[0]), wbm.load_model(files[0], "cpu", F64)
+
+
+@pytest.fixture(scope="module")
+def plans(files):
+    """(port's numpy plan tuple, JAX's)."""
+    return (br.build_barrel_roll_plan(files[1]),
+            jbr.build_barrel_roll_plan(files[1]))
+
+
+def test_loaders_match_jax(files):
+    d = files[1]
+    for got, want in zip(br.load_br_cost_weights(f"{d}/br_cost_weights.JSON"),
+                         jbr.load_br_cost_weights(
+                             f"{d}/br_cost_weights.JSON")):
+        np.testing.assert_array_equal(got, want)
+    got = br.load_br_constraint_params(f"{d}/br_constraint_params.info")
+    assert got == jbr.load_br_constraint_params(
+        f"{d}/br_constraint_params.info")
+    assert got["GRF"] == dict(delta=0.1, delta_min=0.1, eps=0.3)
+    assert got["TD"] == {"lambda": 0.0, "sigma": 20.0, "sigma_max": 1e4}
+    np.testing.assert_array_equal(br.initial_state(), jbr.initial_state())
+    np.testing.assert_array_equal(br.keyframes(), jbr.keyframes())
+
+
+def test_plan_matches_jax(plans):
+    (plan, pen, Xbar0, Ubar0, meta), want = plans
+    got = (plan, pen, Xbar0, Ubar0)
+    for name, g, w in zip(("plan", "pen", "Xbar0", "Ubar0"), got, want):
+        gl, wl = jax.tree.leaves(g), jax.tree.leaves(w)
+        assert len(gl) == len(wl), name
+        for a, b in zip(gl, wl):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), name)
+    assert meta["n_knots"] == want[4]["n_knots"] == 131
+    assert meta["horizons"] == want[4]["horizons"]
+    st = plan.step
+    assert st.active.shape == (130,) and st.is_reset.sum() == 5
+    assert (st.active * (1 - st.is_reset)).sum() == 125
+
+
+def _sites(plan):
+    """(a mid-phase dynamics step of each phase, the reset steps, the
+    phase-terminal knots)."""
+    st, kn = plan.step, plan.knot
+    resets = np.flatnonzero(st.is_reset > 0)
+    starts = np.r_[0, resets + 1]
+    ends = np.r_[resets, len(st.active)]
+    mid = (starts + ends) // 2
+    return mid, resets, np.flatnonzero(kn.is_terminal > 0)
+
+
+@pytest.fixture(scope="module")
+def points(plans):
+    """Seeded states near the initial trajectory at every knot, controls
+    and GRF outputs at every step."""
+    plan, _, Xbar0, Ubar0, _ = plans[0]
+    rng = np.random.default_rng(11)
+    X = Xbar0 + rng.normal(0, 0.05, Xbar0.shape)
+    X[:, 18:] += rng.normal(0, 0.5, (len(X), 18))
+    U = rng.normal(0, 4.0, Ubar0.shape)
+    Y = rng.normal(0, 20.0, Ubar0.shape)
+    return X, U, Y
+
+
+STEP_FNS = ("dyn", "dyn_partials", "run_cost", "run_cost_partials",
+            "path_con", "path_con_partials")
+RESET_FNS = ("reset", "reset_partial")
+KNOT_FNS = ("term_cost", "term_cost_partials", "term_con",
+            "term_con_partials")
+
+
+@pytest.fixture(scope="module")
+def jax_values(models, plans, points):
+    """Every JAX problem function vmapped over its sites, in one jitted
+    program."""
+    plan = jax_to_device(plans[1][0], dtype=jnp.float64)
+    mid, resets, term = _sites(plans[0][0])
+    X, U, Y = (jnp.asarray(a) for a in points)
+    fns = jbr.make_barrel_roll_fns(models[0])
+
+    @jax.jit
+    def run():
+        out = {}
+        for idx, names, args in (
+                (mid, STEP_FNS, lambda i: (X[i], U[i], Y[i])),
+                (resets, RESET_FNS, lambda i: (X[i],)),
+                (term, KNOT_FNS, lambda i: (X[i],))):
+            pd = plan.knot if names is KNOT_FNS else plan.step
+            pd = jax.tree.map(lambda a: a[idx], pd)
+            for n in names:
+                a = args(idx)[:2] if n in ("dyn", "dyn_partials") \
+                    else args(idx)
+                out[n] = jax.vmap(getattr(fns, n))(*a, pd)
+        return out
+    return jax.tree.map(np.asarray, run())
+
+
+@pytest.mark.parametrize("name", STEP_FNS + RESET_FNS + KNOT_FNS)
+def test_problem_functions_match_jax(models, plans, points, jax_values,
+                                     name):
+    plan = from_numpy(plans[0][0], "cpu", F64)
+    mid, resets, term = _sites(plans[0][0])
+    X, U, Y = (torch.as_tensor(a)[None] for a in points)
+    fns = br.make_barrel_roll_fns(models[1])
+    f = getattr(fns, name)
+    if name in KNOT_FNS:
+        idx = torch.as_tensor(term)
+        got = f(X[:, idx], type(plan.knot)(*[a[idx] for a in plan.knot]))
+    else:
+        idx = torch.as_tensor(resets if name in RESET_FNS else mid)
+        sd = type(plan.step)(*[a[idx] for a in plan.step])
+        if name in RESET_FNS:
+            got = f(X[:, idx], sd)
+        elif name in ("dyn", "dyn_partials"):
+            got = f(X[:, idx], U[:, idx], sd)
+        else:
+            got = f(X[:, idx], U[:, idx], Y[:, idx], sd)
+    got = to_numpy(got if isinstance(got, tuple) else (got,))
+    want = jax_values[name]
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == (1,) + w.shape
+        np.testing.assert_allclose(g[0], w, rtol=0,
+                                   atol=TOL * max(1.0, np.abs(w).max()))
+
+
+def test_reset_is_the_identity_without_a_touchdown(models, plans, points):
+    """Of the 5 reset steps, those into stance (after the two flights)
+    apply the impact; the others leave the state and give P = I."""
+    plan_np = plans[0][0]
+    _, resets, _ = _sites(plan_np)
+    st = plan_np.step
+    touch = ((st.contact_next - st.contact) > 0.5).any(1)[resets]
+    assert touch.tolist() == [False, False, True, False, True]
+    plan = from_numpy(plan_np, "cpu", F64)
+    idx = torch.as_tensor(resets)
+    sd = type(plan.step)(*[a[idx] for a in plan.step])
+    X = torch.as_tensor(points[0])[None, idx]
+    fns = br.make_barrel_roll_fns(models[1])
+    xr, P = fns.reset(X, sd)[0], fns.reset_partial(X, sd)[0]
+    assert torch.equal(xr[~touch], X[0][~touch])
+    assert torch.equal(P[~touch], torch.eye(36, dtype=F64).expand(3, 36, 36))
+    assert not torch.equal(xr[touch, 18:], X[0][touch, 18:])
+
+
+OPTS = dict(max_AL_iter=1, max_DDP_iter=2)
+
+
+@pytest.fixture(scope="module")
+def jax_solve(models, plans):
+    plan_np, pen_np, Xbar0, Ubar0, _ = plans[1]
+    solve = jax.jit(jax_make_solver(
+        jbr.make_barrel_roll_fns(models[0]), JaxSolverOptions(**OPTS),
+        parallel_line_search=False, trim_output=True))
+    res = solve(jax_to_device(plan_np, dtype=jnp.float64),
+                jax.tree.map(lambda a: jnp.asarray(np.asarray(a),
+                                                   jnp.float64), pen_np),
+                jnp.asarray(jbr.initial_state()), jnp.asarray(Xbar0),
+                jnp.asarray(Ubar0))
+    return jax.tree.map(np.asarray, res)
+
+
+def _exact_cholesky(Quu):
+    """Cholesky factor of Quu - 1e-9 I, as the JAX un-fused sweep takes it."""
+    eye = torch.eye(Quu.shape[-1], dtype=Quu.dtype)
+    L, info = torch.linalg.cholesky_ex(Quu - 1e-9 * eye)
+    return L, info == 0
+
+
+def test_solve_matches_jax_masked_resets(models, plans, jax_solve,
+                                         monkeypatch):
+    monkeypatch.setattr(sweep_mod, "cholesky_pivot_rule", _exact_cholesky)
+    plan_np, pen_np, Xbar0, Ubar0, _ = plans[0]
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, br.initial_state(), Xbar0, Ubar0), "cpu", F64)
+    solve = make_solver(br.make_barrel_roll_fns(models[1]),
+                        SolverOptions(**OPTS), max_resets=16)
+    got = to_numpy(solve(plan, broadcast_batch(pen, 1), x0[None],
+                         Xbar0[None], Ubar0[None]))
+    want = jax_solve
+    assert got.success[0] and want.success
+    for f in ("iters", "ls_iters", "reg_iters", "n_entries"):
+        assert getattr(got.info, f)[0] == getattr(want.info, f), f
+    assert want.info.iters == 2
+    np.testing.assert_allclose(got.Xbar[0], want.Xbar, rtol=0,
+                               atol=SOLVE_TOL)
+    np.testing.assert_allclose(got.Ubar[0], want.Ubar, rtol=0,
+                               atol=SOLVE_TOL)
+    np.testing.assert_allclose(got.cost[0], want.cost, rtol=SOLVE_TOL,
+                               atol=0)
+    np.testing.assert_allclose(got.max_tconstr[0], want.max_tconstr,
+                               rtol=0, atol=SOLVE_TOL)

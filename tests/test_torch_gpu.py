@@ -543,6 +543,35 @@ def test_mhpc_solve_through_kernels_matches_twins(cuda, robot):
     _same_solve(got, want)
 
 
+@pytest.mark.gpu
+def test_barrel_roll_solve_through_kernels_matches_twins(cuda, robot,
+                                                         tmp_path):
+    """The 131-knot barrel roll at B=1 in f64, 1 AL x 2 DDP, on the
+    synthetic settings: through the sweep and linroll kernels against
+    their twins, same success and iteration counts, trajectories to 1e-8;
+    the twin solve launches no kernel."""
+    from cafempc_tpu_torch.problems import barrel_roll as br
+    from cafempc_tpu_torch.reference.synthetic import \
+        write_synthetic_br_settings
+    plan_np, pen_np, Xbar0, Ubar0, _ = br.build_barrel_roll_plan(
+        write_synthetic_br_settings(str(tmp_path)))
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, br.initial_state(), Xbar0, Ubar0), cuda,
+        torch.float64)
+    args = (plan, broadcast_batch(pen, 1), x0[None], Xbar0[None],
+            Ubar0[None])
+    fns = br.make_barrel_roll_fns(wbm.load_model(robot, cuda, torch.float64))
+    opts = SolverOptions(max_AL_iter=1, max_DDP_iter=2)
+    before = (sw.sweep.launches, lr.linroll.launches)
+    got = make_solver(fns, opts, max_resets=16)(*args)
+    torch.cuda.synchronize()
+    after = (sw.sweep.launches, lr.linroll.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    want = make_solver(fns, opts, max_resets=16, plain_ops=True)(*args)
+    assert (sw.sweep.launches, lr.linroll.launches) == after
+    _same_solve(got, want)
+
+
 class _Loopback:
     """An in-memory transport: what one endpoint publishes, it handles."""
 

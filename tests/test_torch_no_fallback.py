@@ -424,3 +424,77 @@ def test_examples_default_to_cuda_and_refuse_without_it(example,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     ex.main(["--role", "mpc"])
     assert started[-1][0] == "cuda"
+
+
+class _Stop(Exception):
+    """Raised by a stand-in to end an example once it chose its device."""
+
+
+@pytest.mark.parametrize("example", ["barrel_roll_demo", "loco_to_demo",
+                                     "br_reference_demo"])
+def test_offline_examples_default_to_cuda_and_refuse_without_it(
+        example, monkeypatch, tmp_path):
+    """The trajectory-optimization examples load their robot on cuda unless
+    --device cpu is given; without a CUDA device they refuse to start."""
+    import importlib
+    ex = importlib.import_module(f"cafempc_tpu_torch.examples.{example}")
+    seen = []
+
+    def load_robot(urdf, out, device, dtype=torch.float64):
+        seen.append(device)
+        raise _Stop
+    monkeypatch.setattr(ex, "load_robot", load_robot)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ex.main(["--out", str(tmp_path)])
+        assert seen == []
+    with pytest.raises(_Stop):
+        ex.main(["--out", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(_Stop):
+        ex.main(["--out", str(tmp_path)])
+    assert seen == ["cpu", "cuda"]
+
+
+def test_loco_problem_defaults_to_cuda(mhpc_model, tmp_path):
+    """`build_loco_problem` puts its plan on cuda unless asked for the CPU:
+    without CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from cafempc_tpu_torch.problems import loco_problem as lp
+    from cafempc_tpu_torch.reference import generator
+    ref = generator.generate_reference("flypace", duration=0.3,
+                                       model=mhpc_model)
+    csv = str(tmp_path / "quad_reference.csv")
+    generator.write_quad_reference_csv(ref, csv)
+    cfg = mp.MHPCConfig(plan_dur_wb=0.2, plan_dur_srb=0.0, pcon_set="loco",
+                        n_steps_max=32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        lp.build_loco_problem(csv, mhpc_model, cfg=cfg, opts=SolverOptions())
+    assert lp.build_loco_problem(csv, mhpc_model, cfg=cfg,
+                                 opts=SolverOptions(), device="cpu")[2] \
+        .step.active.device.type == "cpu"
+
+
+def test_barrel_roll_solve_on_cpu_runs_the_twins_and_counts_no_launch(
+        mhpc_model, tmp_path):
+    """The barrel-roll solve on CPU tensors goes through the plain twins of
+    the sweep and the linear rollout and launches nothing; its telemetry
+    buffers hold `info_len` entries."""
+    from cafempc_tpu_torch.problems import barrel_roll as br
+    from cafempc_tpu_torch.reference.synthetic import \
+        write_synthetic_br_settings
+    from cafempc_tpu_torch.solver.hsddp import make_solver
+    plan_np, pen_np, Xbar0, Ubar0, _ = br.build_barrel_roll_plan(
+        write_synthetic_br_settings(str(tmp_path)))
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, br.initial_state(), Xbar0, Ubar0), "cpu",
+        torch.float64)
+    before = (sw.sweep.launches, lr.linroll.launches)
+    res = make_solver(br.make_barrel_roll_fns(mhpc_model),
+                      SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                      max_resets=16, info_len=8)(
+        plan, broadcast_batch(pen, 1), x0[None], Xbar0[None], Ubar0[None])
+    assert bool(res.success.all()) and bool(torch.isfinite(res.cost).all())
+    assert res.info.cost_buf.shape == (1, 8)
+    assert (sw.sweep.launches, lr.linroll.launches) == before

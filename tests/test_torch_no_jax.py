@@ -24,6 +24,8 @@ MODULES = [
     "cafempc_tpu_torch.reference.gait",
     "cafempc_tpu_torch.reference.quad_reference",
     "cafempc_tpu_torch.reference.synthetic",
+    "cafempc_tpu_torch.reference.generator",
+    "cafempc_tpu_torch.reference.acrobatic",
     "cafempc_tpu_torch.problems.hkd_problem",
     "cafempc_tpu_torch.ops._ext",
     "cafempc_tpu_torch.ops.sweep",
@@ -33,6 +35,9 @@ MODULES = [
     "cafempc_tpu_torch.ops.hkd_trial",
     "cafempc_tpu_torch.problems.hkd_fused",
     "cafempc_tpu_torch.problems.mhpc_problem",
+    "cafempc_tpu_torch.problems.barrel_roll",
+    "cafempc_tpu_torch.problems.loco_problem",
+    "cafempc_tpu_torch.utils.traj_logging",
     "cafempc_tpu_torch.parallel.mesh",
     "cafempc_tpu_torch.runtime.warm_start",
     "cafempc_tpu_torch.runtime.mpc",
@@ -44,6 +49,9 @@ MODULES = [
     "cafempc_tpu_torch.examples",
     "cafempc_tpu_torch.examples.two_process_hkd_mpc",
     "cafempc_tpu_torch.examples.two_process_mhpc",
+    "cafempc_tpu_torch.examples.barrel_roll_demo",
+    "cafempc_tpu_torch.examples.loco_to_demo",
+    "cafempc_tpu_torch.examples.br_reference_demo",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
