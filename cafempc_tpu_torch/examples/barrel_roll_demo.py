@@ -100,6 +100,7 @@ def main(argv=None):
     opts = dataclasses.replace(opts, max_AL_iter=args.max_al,
                                max_DDP_iter=args.max_ddp)
     solve = make_solver(br.make_barrel_roll_fns(model), opts,
+                        fused_riccati=True, parallel_line_search=False,
                         max_resets=MAX_RESETS, trim_output=False,
                         info_len=INFO_LEN)
     t0 = time.perf_counter()

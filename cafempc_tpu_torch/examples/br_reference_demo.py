@@ -103,6 +103,7 @@ def main(argv=None):
                       for a, b, h, c in meta["wb_phases"]])
     opts = SolverOptions(max_AL_iter=args.max_al)
     solve = make_solver(mp.make_mhpc_fns_segmented(cfg, model), opts,
+                        fused_riccati=True, parallel_line_search=False,
                         max_resets=MAX_RESETS)
     t0 = time.perf_counter()
     res = scenario(to_numpy(solve(*inputs)), 0)

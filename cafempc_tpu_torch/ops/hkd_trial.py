@@ -16,8 +16,9 @@ One whole line-search trial at a per-scenario step eps [B]
   penalties; feas = |Defect|; maxp = min(0, min active g);
   maxt = max active |h|; ok = Xsim finite and max_k k_act |Xsim_k|^2 < 1e12.
 
-The reset map is applied at every reset step (not only at the first
-`max_resets` sites as the generic solver path does).  dt is used exactly:
+The reset map is applied at every reset step, as in the generic solver
+path (which refuses a plan with more reset steps than its `max_resets`
+when it gathers them).  dt is used exactly:
 the Pallas kernel rounds its flag table, dt included, to float32 even in
 float64 (fused_hkd_trial.py:421); the JAX fallback and the generic path do
 not, and neither does this port.

@@ -3,32 +3,32 @@
 
 In the JAX package the per-scenario solve is vmapped (and shard_mapped
 over a device mesh); here the solver is batched natively, so the batched
-solver is the solver itself.  Device meshes (scenario and knot sharding)
-are not ported yet.
+solver is the solver itself, built with the same keywords and defaults.
+Device meshes (scenario and knot sharding) are not ported yet.
 """
 from cafempc_tpu_torch.solver.hsddp import make_solver
 
 
 def make_batched_solver(fns, opts, *, all_shooting=True, mesh=None,
-                        trim_output=True, parallel_line_search=False,
-                        fused_riccati=True, fused_forward=None,
-                        fused_lq=None, **solver_kwargs):
+                        axis_name="scenario", trim_output=True,
+                        knot_axis_name="knot", **solver_kwargs):
     """Returns solve_batch(plan, pen_b, x0_b, Xbar_b, Ubar_b), the same
     call as the JAX package's: plan shared, the rest with a leading
-    scenario dim.  `fns` is a ProblemFns or a SegmentedFns.  The keyword
-    arguments name the JAX configuration; the port runs all-shooting,
-    sequential line search and the fused sweep and linear rollout, and
-    raises for a variant it has not ported.  trim_output=False returns the
-    final SolverState; `fused_forward` and `fused_lq` (e.g. the HKD hooks
-    of problems/hkd_fused.py) go to make_solver."""
-    if not (all_shooting and fused_riccati) \
-            or parallel_line_search or mesh is not None:
+    scenario dim.  `fns` is a ProblemFns or a SegmentedFns; the other
+    keywords go to `solver.hsddp.make_solver` with the JAX defaults (masked
+    resets, the exact sequential sweep, the scan linear rollout, the
+    batched line search), e.g. `fused_riccati=True,
+    parallel_line_search=False, max_resets=16` for the kernel path, and
+    `fused_forward` / `fused_lq` for the HKD hooks of problems/hkd_fused.py.
+    trim_output=False returns the final SolverState.  A `mesh` (and with
+    it `axis_name` / `knot_axis_name`) raises NotImplementedError."""
+    if mesh is not None:
         raise NotImplementedError(
-            "ported: all_shooting=True, parallel_line_search=False, "
-            "fused_riccati=True, mesh=None")
-    return make_solver(fns, opts, fused_forward=fused_forward,
-                       fused_lq=fused_lq, trim_output=trim_output,
-                       **solver_kwargs)
+            f"mesh: the ({axis_name!r}, {knot_axis_name!r}) device meshes "
+            f"are not ported yet (ROADMAP queue 1 step 8); the batched "
+            f"solver runs on one device")
+    return make_solver(fns, opts, all_shooting=all_shooting,
+                       trim_output=trim_output, **solver_kwargs)
 
 
 def broadcast_batch(tree, batch):

@@ -20,9 +20,11 @@ This is "config 4" of BASELINE.json: full SO(3) whole-body trajopt.  The
 plan builder and the settings loaders are host-side numpy and return
 numpy; the problem functions take the whole batch (states [B, n, 36]
 against plan slices [n, ...]) on the port's whole-body model
-(`models/wbm.py`).  The JAX solve evaluates the reset map at every step
-under a select (`max_resets=None`); the port gathers the plan's 5 reset
-steps (`make_solver(..., max_resets=16)`), which gives the same solve.
+(`models/wbm.py`).  `make_solver`'s default, in both packages, evaluates
+the reset map at every step under a select (`max_resets=None`, the JAX
+demo's configuration); the port's demo gathers the plan's 5 reset steps
+for its kernel path (`make_solver(..., fused_riccati=True,
+parallel_line_search=False, max_resets=16)`), which gives the same solve.
 """
 import json
 import re

@@ -99,7 +99,9 @@ def solve_loco_to(ref_csv, model, *, settings_dir=None, cfg=None,
         opts = dataclasses.replace(opts, max_AL_iter=max_AL_iter)
     if max_DDP_iter is not None:
         opts = dataclasses.replace(opts, max_DDP_iter=max_DDP_iter)
-    solve = make_solver(fns, opts, max_resets=max_resets, trim_output=False)
+    solve = make_solver(fns, opts, fused_riccati=True,
+                        parallel_line_search=False, max_resets=max_resets,
+                        trim_output=False)
     s = solve(plan, type(pen)(*[a[None] for a in pen]), x0[None], Xb[None],
               Ub[None])
     return s, plan, meta, qr

@@ -25,9 +25,11 @@ AL outer iteration.
 The runtime takes the robot (a `wbm` model or a URDF path); the JAX
 runtime always loads the default URDF (mhpc_runtime.py:52).  Solver
 configuration: the JAX runtime compiles `make_solver` with its defaults
-(parallel line search, lax.scan sweep); the port runs the sequential line
-search and the sweep and linear-rollout kernels, which the JAX package
-pins as the same solve.
+(masked resets, the batched line search, the sequential exact sweep, the
+scan linear rollout); this runtime names its own, gathered resets
+(`max_resets`), the sequential line search and the sweep and
+linear-rollout kernels (`fused_riccati=True, parallel_line_search=False`),
+which the JAX package pins as the same solve.
 """
 import dataclasses
 import time
@@ -107,7 +109,8 @@ class MHPCRuntime:
         # are the JAX joint mode's on such a plan
         fns = (mp.make_mhpc_fns_segmented(cfg, model) if cfg.plan_dur_srb > 0
                else mp.make_mhpc_fns(cfg, model, "wb"))
-        kw = dict(max_resets=max_resets, trim_output=False, iter_callback=(
+        kw = dict(fused_riccati=True, parallel_line_search=False,
+                  max_resets=max_resets, trim_output=False, iter_callback=(
             self._intermtraj_callback if debug_intermtraj else None))
         self.solve_init = make_solver(fns, opts, **kw)
         self.solve_rt = make_solver(fns, opts.runtime(), **kw)

@@ -18,9 +18,11 @@ and, with `debug_intermtraj`, `solver_intermtraj_lcmt` after every AL
 outer iteration.
 
 Solver configuration: the JAX runtime compiles `make_solver` with its
-defaults (masked resets, parallel line search, lax.scan sweep); this port
-runs gathered resets, the sequential line search and the fused sweep and
-linear rollout, which the JAX package pins as the same solve
+defaults (masked resets, the batched line search, the sequential exact
+sweep, the scan linear rollout); this runtime names its own, gathered
+resets (`max_resets=MAX_RESETS`), the sequential line search and the sweep
+and linear-rollout kernels (`fused_riccati=True,
+parallel_line_search=False`), which the JAX package pins as the same solve
 (tests/test_hkd_solver.py).
 """
 import dataclasses
@@ -71,7 +73,8 @@ class HKDMPCRuntime:
         self.device = device
         self.dtype = dtype
         fns = hp.make_hkd_fns()
-        kw = dict(max_resets=MAX_RESETS, iter_callback=(
+        kw = dict(fused_riccati=True, parallel_line_search=False,
+                  max_resets=MAX_RESETS, iter_callback=(
             self._intermtraj_callback if debug_intermtraj else None))
         self.solve_init = make_solver(fns, opts, **kw)
         self.solve_rt = make_solver(fns, opts.runtime(), **kw)

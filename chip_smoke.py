@@ -111,6 +111,31 @@ Phases (one line of output each, unless noted):
         the reference data's timing) in the window [0.25, 0.85] s, 8 AL:
         a discovered flight phase, the touchdown AL armed at its terminal
         knot, success with a finite cost, the largest roll angle;
+ 10. the JAX package's default solver configuration (masked resets, the
+     exact sequential sweep, the scan linear rollout, the batched line
+     search) and the solver's other plain-PyTorch stages:
+     a. phase 3b's hkd-B256-f32 plan under `make_batched_solver(fns, opts,
+        trim_output=True, reg_floor=1e-3)`, then with parallel_riccati:
+        one warm-up, timed solves, one profiled solve; no kernel launch,
+        success flags equal to 3b's, cost within COST_RTOL;
+     b. the sweep kernel, the exact sequential sweep and the scan sweep at
+        B=1 in f64 on the HKD runtime plan's first sweep operands and on
+        9b's: all ok, each against the exact sweep to PLAIN_SWEEP_TOL,
+        profiler device ms and CUDA-event ms per call;
+     c. single shooting (opts.MS=False, all_shooting=False) on the HKD
+        runtime plan at B=1 in f64, 2 AL x 3 DDP: success, feas < 1e-8,
+        the final cost at or below the first;
+     d. 7a's mhpc-B256-f32 solve with masked resets and the batched line
+        search, the sweep and linroll kernels kept: success flags equal to
+        7a's, cost within COST_RTOL, peak memory;
+     e. 7c's cascade500 solve cut to 1 AL x 1 DDP, unchunked and with
+        lq_knot_chunk=16: ms and peak memory of each, success flags equal,
+        cost within COST_RTOL; the chunked LQ stage against the unchunked
+        one on the plan's initial trajectory at B=2, f64 to 1e-12 and f32
+        to 1e-4, normalized;
+     f. 9b's barrel roll under the JAX demo's configuration (the
+        make_solver defaults): success and iteration counts equal to 9b's,
+        cost within 1e-6 relative;
 then the card's name and power limit, one JSON line of the kernels
 (`launches` each one's launches in phase 3's profiled solve, `ms` its
 device time per launch by torch.profiler, `event_ms` its CUDA-event time
@@ -130,6 +155,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -166,6 +192,8 @@ from cafempc_tpu_torch.reference.synthetic import (
     write_synthetic_br_settings)
 from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+from cafempc_tpu_torch.solver import hsddp
+from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
 
 DEVICE = "cuda"
@@ -706,17 +734,13 @@ def phase_solves(label):
     """Phases 3, 3b and 4: the bench default through all four kernels, the
     configuration without the fused LQ and trial, and the bench default
     through the plain twins.  Returns the kernels' launches in phase 3's
-    profiled solve."""
+    profiled solve, and 3b's (result, cost, success)."""
     args, meta = bench_problem(torch.float32)
-    n_reset = int(args[0].step.is_reset.sum())
-    if n_reset > MAX_RESETS:
-        fail(f"the plan has {n_reset} resets: the fused paths apply every "
-             f"one, the generic rollout only the first {MAX_RESETS}")
     res, cost, success, med, launches = phase_solve(
         label, "3", "bench default (fused LQ + trial)", args, meta,
         fused_hooks(), KERNELS)
-    phase_solve(label, "3b", "without the fused LQ and trial", args, meta,
-                {}, ("sweep", "linroll"))
+    unfused = phase_solve(label, "3b", "without the fused LQ and trial",
+                          args, meta, {}, ("sweep", "linroll"))[:3]
 
     solve_p = make_batched_solver(hp.make_hkd_fns(), OPTS, plain_ops=True,
                                   **fused_hooks(), **SOLVE_KW)
@@ -738,7 +762,7 @@ def phase_solves(label):
         fail("kernel and plain solves are not finite")
     if not torch.equal(success, success_p) or not dc <= COST_RTOL:
         fail("the kernel solve disagrees with the plain-twin solve")
-    return launches
+    return launches, unfused
 
 
 def phase_runtime(label, x0):
@@ -1230,6 +1254,7 @@ def phase_mhpc(label, models):
         fail("the mhpc kernel solve disagrees with its plain-twin solve")
     figs = path_kernel_figures(seen, label)
     figs["launches"] = per_solve
+    figs["solve"] = (cost, success)
     return figs
 
 
@@ -1660,6 +1685,10 @@ def phase_serve_mhpc(label, model):
 # solves over phase 9's time; barrel_roll_demo runs it
 BR_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=4)
 BR_RTOL = 1e-8          # kernel vs twin barrel-roll solve, f64
+# the kernel path of phase 9's solves: gathered resets, sequential line
+# search, the sweep and linroll kernels
+BR_KW = dict(fused_riccati=True, parallel_line_search=False,
+             max_resets=MAX_RESETS)
 PUSH_B = 64
 PUSH_SIGMA = 0.2        # m/s, per axis of the body's linear velocity
 PUSH_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
@@ -1739,10 +1768,11 @@ def phase_barrel_roll(label, model, setting_dir):
     solve with the counts set to 0 just before and read just after), then
     through the plain twins; 9c: the two kernels against their twins on
     the warm-up's operands.  Returns the kernels' figures at the
-    barrel-roll shape."""
+    barrel-roll shape, the solve's (result, cost, success), the first
+    sweep's operands and the problem (fns, solver inputs)."""
     plan_np, _, args = ex_br.problem(setting_dir, DEVICE)
     fns = br.make_barrel_roll_fns(model)
-    kw = dict(max_resets=MAX_RESETS)
+    kw = BR_KW
     solve_c, seen = capturing_solver(fns, BR_OPTS, **kw)
     t0 = time.perf_counter()
     solve_c(*args).cost.cpu()
@@ -1788,6 +1818,8 @@ def phase_barrel_roll(label, model, setting_dir):
     figs = path_kernel_figures(seen, label, "9c", "barrel-roll",
                                (torch.float64,))
     figs["launches"] = launches
+    figs.update(solve=(res, cost, success), sweep_ops=seen["sweep"],
+                problem=(fns, args))
     return figs
 
 
@@ -1825,7 +1857,7 @@ def stage_clock(fns, args, **kw):
 def stage_text(label, fns, args, res):
     """9b's solve by stage, and one WB linearization on the card (device
     only) at the solved trajectory."""
-    clock, wall = stage_clock(fns, args, max_resets=MAX_RESETS)
+    clock, wall = stage_clock(fns, args, **BR_KW)
     rest = wall - sum(ms for ms, _ in clock.values())
     plan = args[0]
     prof = profile_device(lambda: fns.dyn_partials(
@@ -1856,7 +1888,7 @@ def phase_barrel_roll_push(label, model32, model64, setting_dir):
             broadcast_batch(Xbar0[0], PUSH_B),
             broadcast_batch(Ubar0[0], PUSH_B))
     fns = br.make_barrel_roll_fns(model32)
-    kw = dict(max_resets=MAX_RESETS)
+    kw = BR_KW
     solve = make_batched_solver(fns, PUSH_OPTS, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1955,7 +1987,8 @@ def phase_br_reference(label, model):
     cfg, plan_np, meta, args = ex_brref.problem(ref, DEVICE)
     solve = make_batched_solver(
         mp.make_mhpc_fns_segmented(cfg, model),
-        SolverOptions(max_AL_iter=8), max_resets=ex_brref.MAX_RESETS)
+        SolverOptions(max_AL_iter=8), fused_riccati=True,
+        parallel_line_search=False, max_resets=ex_brref.MAX_RESETS)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2000,6 +2033,296 @@ def phase_trajopt(label):
     return figs
 
 
+# Phase 10: the JAX package's default solver configuration (masked resets,
+# the exact sequential sweep, the scan linear rollout, the batched line
+# search) and the solver's other plain-PyTorch stages on the card
+N_SWEEP_TIMED = 5      # 10b: calls per timing of one B=1 sweep
+# 10b: a sweep against the exact sequential sweep, normalized by the exact
+# one's max |value|.  The scan and the kernel reassociate the recursion, and
+# the gains K = -Quu^-1 Qux carry that rounding amplified by Quu's
+# conditioning (pivots down to ~1e-3 on these operands in the CPU
+# rehearsal: G, H <= 1.3e-8, K <= 5.2e-7)
+PLAIN_SWEEP_TOL = {"G": 1e-7, "H": 1e-7, "K": 1e-5}
+LQ_CHUNK = 16          # 10e: knots per LQ piece
+# 10e's depth, cut from 7c's 4 AL to fit the script's time: a piece of 16
+# knots redispatches the whole WB linearization, ~4.5x 7c's solve time
+CHUNK_OPTS = SolverOptions(max_AL_iter=1, max_DDP_iter=1)
+N_LQ_CHECK = 2         # 10e: scenarios of the chunked-vs-unchunked LQ check
+# 10e: the chunked LQ stage against the unchunked one, normalized by the
+# unchunked one's max |value|: f64 the same to rounding; f32 within the f32
+# kernel tolerance (cuBLAS picks its GEMM kernels by batch size, so a
+# piece of 16 knots need not round as the whole horizon does)
+CHUNK_LQ_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+BR_RTOL_10F = 1e-6     # 10f: cost against 9b's solve (f64)
+
+
+def plain_solve_text(res, cost, success, ref_cost, ref_success):
+    """Iterations, and the cost against a reference solve's over the
+    scenarios where both are finite."""
+    both = torch.isfinite(cost) & torch.isfinite(ref_cost)
+    dc = float(((cost - ref_cost) / ref_cost)[both].abs().max())
+    return dc, (f"{solve_text(res, cost, success)}; success flags equal "
+                f"{torch.equal(success, ref_success)}, cost rel diff "
+                f"{dc:.3e}")
+
+
+def phase_jax_default_hkd(label, unfused):
+    """10a: the hkd-B256-f32 plan of phase 3b under the JAX defaults, then
+    with parallel_riccati=True: timed solves, one profiled solve; no
+    kernel launches; success flags equal to 3b's, cost within
+    COST_RTOL."""
+    args, _ = bench_problem(torch.float32)
+    _, cost_3b, success_3b = unfused
+    for name, kw in (("JAX defaults", {}),
+                     ("parallel_riccati=True", dict(parallel_riccati=True))):
+        solve = make_batched_solver(hp.make_hkd_fns(), OPTS,
+                                    trim_output=True, reg_floor=1e-3, **kw)
+        reset_counts()
+        res, cost, success, ms = timed_solves(solve, args, N_TIMED)
+        prof = profile_device(lambda: solve(*args).cost.cpu(), host=False)
+        launched = read_counts()
+        med = statistics.median(ms)
+        dc, text = plain_solve_text(res, cost, success, cost_3b, success_3b)
+        print(f"[10a] hkd B={B} f32, {name} (masked resets, "
+              f"{'scan' if kw else 'exact sequential'} sweep, scan linear "
+              f"rollout, batched line search): {B / (med / 1e3):.1f} "
+              f"solves/s, median {med:.2f} ms per batched solve (each: "
+              f"{', '.join(f'{m:.2f}' for m in ms)}); {text} against 3b "
+              f"(tol {COST_RTOL:g}); kernel launches {launched}; "
+              f"{profile_text(prof, 'one solve (device only)')} [{label}]",
+              flush=True)
+        if any(launched.values()):
+            fail(f"the {name} solve launched kernels: {launched}")
+        if not torch.equal(success, success_3b) or not dc <= COST_RTOL:
+            fail(f"the hkd solve under {name} disagrees with phase 3b's")
+
+
+def sweep_stage_inputs(ops):
+    """The sweep kernel's operands (the cost streams merged, the output
+    terms folded) as the solver's sweep stages read them: (plan fields,
+    TrajState).  Every stage reads lx/lxx on dynamics steps and phix/phixx
+    on transform steps, so both hold the merged streams."""
+    A, Bm, lx, lu, lxx, luu, lux, phix_T, phixx_T, defect, w = ops
+    Bsz, N, xs = lx.shape
+    us = lu.shape[-1]
+    tr = hsddp.init_traj(types.SimpleNamespace(n_steps=N), xs, us, 0,
+                         A.new_zeros(Bsz, N + 1, xs),
+                         A.new_zeros(Bsz, N, us))
+    tr = tr._replace(A=A, B=Bm, lx=lx, lu=lu, lxx=lxx, luu=luu, lux=lux,
+                     phix=torch.cat([lx, phix_T[:, None]], 1),
+                     phixx=torch.cat([lxx, phixx_T[:, None]], 1),
+                     Defect=defect)
+    plan = types.SimpleNamespace(step=types.SimpleNamespace(
+        is_reset=w.to(A.dtype), active=torch.ones_like(w, dtype=A.dtype)))
+    return plan, tr
+
+
+def phase_b1_sweeps(label, name, captured):
+    """10b: the sweep kernel, the exact sequential sweep and the
+    associative-scan sweep on one solve's captured first sweep operands
+    (B=1, f64): all ok, each against the exact sweep to PLAIN_SWEEP_TOL;
+    profiler device ms and CUDA-event ms per call."""
+    *ops, reg = captured
+    plan, tr = sweep_stage_inputs(ops)
+    stages = make_solver(hp.make_hkd_fns(), SolverOptions())
+    runs = {"kernel": lambda: stages._backward_sweep_fused(plan, tr, reg, ops),
+            "exact": lambda: stages._backward_sweep(plan, tr, reg),
+            "scan": lambda: stages._backward_sweep_parallel(plan, tr, reg)}
+    outs = {k: f() for k, f in runs.items()}
+    oks = {k: bool(o[3][0]) for k, o in outs.items()}
+    w = ops[-1] > 0
+    us = ops[3].shape[-1]
+    Quu = outs["exact"][0][5][:, ~w]
+    L = torch.linalg.cholesky(Quu - 1e-9 * torch.eye(us, device=DEVICE,
+                                                     dtype=Quu.dtype))
+    d_min = float(torch.diagonal(L, dim1=-2, dim2=-1).pow(2).min())
+    every = torch.ones(1, dtype=torch.bool, device=DEVICE)
+    errs = {k: {f: errors(outs[k][0][i], outs["exact"][0][i], every)[1]
+                for i, f in ((0, "G"), (1, "H"), (2, "K"))}
+            for k in ("kernel", "scan")}
+    times = {}
+    for k, f in runs.items():
+        prof = profile_device(lambda: (f(), torch.cuda.synchronize()),
+                              host=False)
+        dev_ms = (kernel_ms(f, N_SWEEP_TIMED, "sweep_kernel") if k == "kernel"
+                  else prof[2] if prof else float("nan"))
+        times[k] = (dev_ms, f"{prof[0]} launches" if prof
+                    else "launches not measured", time_ms(f, N_SWEEP_TIMED))
+    N, xs = ops[2].shape[1:]
+    print(f"[10b] {name} sweep operands (B=1 f64, N={N}, xs={xs}, us={us}, "
+          f"{int(w.sum())} transform steps, reg {float(reg[0]):g}): ok "
+          f"{oks}; against the exact sweep, normalized: " + "; ".join(
+              f"{k} " + ", ".join(f"{f} {e:.3e}" for f, e in v.items())
+              for k, v in errs.items())
+          + f" (tol {PLAIN_SWEEP_TOL}; the pivot rule's 1e-9/d_min "
+          f"{1e-9 / d_min:.3e}); per call: " + "; ".join(
+              f"{k} device {d:.4f} ms ({n}), event {e:.4f} ms"
+              for k, (d, n, e) in times.items()) + f" [{label}]", flush=True)
+    if not all(oks.values()):
+        fail(f"a B=1 sweep on the {name} operands is not ok: {oks}")
+    bad = {k: v for k, v in errs.items()
+           if any(not e <= PLAIN_SWEEP_TOL[f] for f, e in v.items())}
+    if bad:
+        fail(f"sweeps disagree with the exact sweep on the {name} operands: "
+             f"{bad}")
+
+
+def phase_single_shooting(label):
+    """10c: single shooting (opts.MS=False, all_shooting=False) on the HKD
+    runtime plan at B=1 in f64, 2 AL x 3 DDP: success, feas < 1e-8, the
+    final cost at or below the first."""
+    args, _ = bench_problem(torch.float64)
+    args = (args[0],) + tuple(convert.scenario(a, slice(0, 1)) for a in
+                              args[1:])
+    opts = SolverOptions(MS=False, max_AL_iter=2, max_DDP_iter=3)
+    solve = make_batched_solver(hp.make_hkd_fns(), opts, all_shooting=False)
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+    n = int(res.info.n_entries[0])
+    first, last = (float(res.info.cost_buf[0, i]) for i in (0, n - 1))
+    feas = float(res.feas[0])
+    print(f"[10c] single shooting, hkd runtime plan B=1 f64, 2 AL x 3 DDP: "
+          f"{ms[0]:.1f} ms per solve; success {bool(success[0])}, "
+          f"{info_text(res.info)}, feas {feas:.3e}; kernel launches "
+          f"{read_counts()} [{label}]", flush=True)
+    if not (bool(success[0]) and feas < 1e-8 and last <= first):
+        fail("the single-shooting solve failed, kept a defect, or ended "
+             "above its first cost")
+
+
+def phase_mhpc_masked(label, models, mhpc):
+    """10d: phase 7a's mhpc-B256-f32 solve with masked resets and the
+    batched line search, the sweep and linroll kernels kept: one timed
+    solve, launches, peak memory; success flags equal to 7a's, cost
+    within COST_RTOL."""
+    f32 = torch.float32
+    cfg, args, _ = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
+    solve = make_batched_solver(mp.make_mhpc_fns_segmented(cfg, models[f32]),
+                                MHPC_OPTS, trim_output=True,
+                                fused_riccati=True, reg_floor=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dc, text = plain_solve_text(res, cost, success, *mhpc["solve"])
+    print(f"[10d] mhpc B={MHPC_B} f32, masked resets and the batched line "
+          f"search (rollout batch {MHPC_B * 3}), sweep and linroll "
+          f"kernels: {ms[0]:.1f} ms per batched solve; {text} against 7a "
+          f"(tol {COST_RTOL:g}); kernel launches {launches}; peak device "
+          f"memory {peak:.2f} GiB [{label}]", flush=True)
+    missed = [k for k in PATH_KERNELS if launches[k] == 0]
+    if missed:
+        fail(f"kernels of the masked mhpc path were never launched: {missed}")
+    if not torch.equal(success, mhpc["solve"][1]) or not dc <= COST_RTOL:
+        fail("the masked mhpc solve disagrees with phase 7a's")
+
+
+def chunked_lq_errors(models):
+    """The LQ stage with lq_knot_chunk=LQ_CHUNK against the unchunked one
+    on the cascade500 plan's initial trajectory, N_LQ_CHECK scenarios, in
+    f64 and f32: {dtype: largest error over the LQ fields, normalized}."""
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        cfg, args, _ = mhpc_problem(N_LQ_CHECK, dtype, cascade500_cfg, 7.6,
+                                    8.0)
+        plan, pen, _, Xbar0, Ubar0 = args
+        fns = mp.make_mhpc_fns_segmented(cfg, models[dtype])
+        tr = hsddp.init_traj(plan, mp.XS, mp.US, mp.YS, Xbar0, Ubar0)
+        got, want = (make_solver(fns, MHPC_OPTS, lq_knot_chunk=c)
+                     ._lq_approx(plan, None, pen, tr) for c in (LQ_CHUNK,
+                                                                 None))
+        every = torch.ones(N_LQ_CHECK, dtype=torch.bool, device=DEVICE)
+        errs[dtype] = max(errors(getattr(got, f), getattr(want, f), every)[1]
+                          for f in ("A", "B", "C", "D", "lx", "lu", "ly",
+                                    "lxx", "luu", "lux", "lyy", "phix",
+                                    "phixx"))
+    return errs
+
+
+def phase_cascade500_chunked(label, models):
+    """10e: the cascade500 solve of 7c at CHUNK_OPTS, unchunked and with
+    lq_knot_chunk=LQ_CHUNK: ms and peak device memory of each; success
+    flags equal, cost within COST_RTOL; and the chunked LQ stage against
+    the unchunked one (chunked_lq_errors) to CHUNK_LQ_TOL."""
+    cfg, args, _ = mhpc_problem(CASCADE_B, torch.float32, cascade500_cfg,
+                                7.6, 8.0)
+    fns = mp.make_mhpc_fns_segmented(cfg, models[torch.float32])
+    runs = {}
+    for chunk in (None, LQ_CHUNK):
+        solve = make_batched_solver(fns, CHUNK_OPTS, max_resets=32,
+                                    lq_knot_chunk=chunk, **MHPC_KW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+        runs[chunk] = (res, cost, success, ms[0],
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+    del solve, args
+    (_, cost_u, success_u, ms_u, peak_u), (res, cost, success, ms, peak) = \
+        runs[None], runs[LQ_CHUNK]
+    dc, text = plain_solve_text(res, cost, success, cost_u, success_u)
+    lq_errs = chunked_lq_errors(models)
+    print(f"[10e] cascade500 B={CASCADE_B} f32, {CHUNK_OPTS.max_AL_iter} AL "
+          f"x {CHUNK_OPTS.max_DDP_iter} DDP, with lq_knot_chunk={LQ_CHUNK}: "
+          f"{ms:.1f} ms per batched solve, peak device memory {peak:.2f} GiB "
+          f"(unchunked: {ms_u:.1f} ms, {peak_u:.2f} GiB); {text} against "
+          f"the unchunked solve (tol {COST_RTOL:g}); the LQ stage chunked "
+          f"vs unchunked on the plan's initial trajectory, B={N_LQ_CHECK}, "
+          f"normalized: " + ", ".join(
+              f"{str(d)[6:]} {e:.3e} (tol {CHUNK_LQ_TOL[d]:g})"
+              for d, e in lq_errs.items()) + f" [{label}]", flush=True)
+    if not torch.equal(success, success_u) or not dc <= COST_RTOL:
+        fail("the chunked cascade500 solve disagrees with the unchunked one")
+    if any(not e <= CHUNK_LQ_TOL[d] for d, e in lq_errs.items()):
+        fail(f"the chunked LQ stage disagrees with the unchunked one: "
+             f"{lq_errs}")
+
+
+def phase_barrel_roll_defaults(label, trajopt):
+    """10f: 9b's barrel roll (B=1 f64, BR_OPTS) under the JAX demo's
+    configuration, the make_solver defaults: one timed solve; success and
+    iteration counts equal to 9b's, cost within BR_RTOL_10F."""
+    fns, args = trajopt["problem"]
+    res_9b, cost_9b, success_9b = trajopt["solve"]
+    solve = make_batched_solver(fns, BR_OPTS)
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, 1, warmup=False)
+    same_it = all(torch.equal(getattr(res.info, f), getattr(res_9b.info, f))
+                  for f in ("iters", "ls_iters", "reg_iters"))
+    dc = float(((cost - cost_9b) / cost_9b).abs().max())
+    print(f"[10f] barrel roll B=1 f64, {BR_OPTS.max_AL_iter} AL x "
+          f"{BR_OPTS.max_DDP_iter} DDP, the JAX demo's configuration (the "
+          f"make_solver defaults): solve {ms[0] / 1e3:.2f} s; success "
+          f"{bool(success[0])}, {info_text(res.info)}; against 9b: "
+          f"iteration counts equal {same_it}, cost rel diff {dc:.3e} (tol "
+          f"{BR_RTOL_10F:g}); kernel launches {read_counts()} [{label}]",
+          flush=True)
+    if not (torch.equal(success, success_9b) and same_it
+            and dc <= BR_RTOL_10F):
+        fail("the barrel roll under the JAX defaults disagrees with 9b's")
+
+
+def phase_plain_stages(label, unfused, models, mhpc, trajopt):
+    """Phase 10 (10a-10f)."""
+    t0 = time.perf_counter()
+    phase_jax_default_hkd(label, unfused)
+    args, _ = bench_problem(torch.float64)
+    args = (args[0],) + tuple(convert.scenario(a, slice(0, 1)) for a in
+                              args[1:])
+    solve_c, seen = capturing_solver(hp.make_hkd_fns(), SolverOptions(),
+                                     **dict(SOLVE_KW, reg_floor=0.0))
+    solve_c(*args).cost.cpu()
+    phase_b1_sweeps(label, "hkd runtime plan", seen["sweep"])
+    phase_b1_sweeps(label, "barrel-roll (9b)", trajopt["sweep_ops"])
+    phase_single_shooting(label)
+    phase_mhpc_masked(label, models, mhpc)
+    phase_cascade500_chunked(label, models)
+    phase_barrel_roll_defaults(label, trajopt)
+    print(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s [{label}]",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -2020,7 +2343,7 @@ def main():
     check_sweep_b1(label)
     check_linroll_shapes(label)
     f32.update(phase_hkd_kernels(label))
-    launches = phase_solves(label)
+    launches, unfused = phase_solves(label)
     args, _ = bench_problem(torch.float64)
     phase_runtime(label, args[2][0].cpu().numpy())
     phase_models(label)
@@ -2032,6 +2355,7 @@ def main():
     phase_serve_hkd(label)
     phase_serve_mhpc(label, models[torch.float64])
     trajopt = phase_trajopt(label)
+    phase_plain_stages(label, unfused, models, mhpc, trajopt)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line

@@ -15,7 +15,10 @@ written for the test:
     sequential line search.  The port's sweep runs with the JAX un-fused
     sweep's exact Cholesky of Quu - 1e-9 I in place of the Pallas pivot
     scaling (as in test_torch_mhpc_solve.py): Xbar, Ubar and the cost to
-    1e-8, iteration counts equal.
+    1e-8, iteration counts equal;
+  * the same JAX solve against the port's with the same keywords (masked
+    resets, the exact sequential sweep, the scan linear rollout, the
+    sequential line search), unpatched: to 1e-8, iteration counts equal.
 """
 import jax
 import jax.numpy as jnp
@@ -228,7 +231,8 @@ def test_solve_matches_jax_masked_resets(models, plans, jax_solve,
     plan, pen, x0, Xbar0, Ubar0 = from_numpy(
         (plan_np, pen_np, br.initial_state(), Xbar0, Ubar0), "cpu", F64)
     solve = make_solver(br.make_barrel_roll_fns(models[1]),
-                        SolverOptions(**OPTS), max_resets=16)
+                        SolverOptions(**OPTS), fused_riccati=True,
+                        parallel_line_search=False, max_resets=16)
     got = to_numpy(solve(plan, broadcast_batch(pen, 1), x0[None],
                          Xbar0[None], Ubar0[None]))
     want = jax_solve
@@ -244,3 +248,26 @@ def test_solve_matches_jax_masked_resets(models, plans, jax_solve,
                                atol=0)
     np.testing.assert_allclose(got.max_tconstr[0], want.max_tconstr,
                                rtol=0, atol=SOLVE_TOL)
+
+
+def test_solve_with_the_same_keywords_matches_jax(models, plans, jax_solve):
+    """The port's masked-reset solve, configured as the JAX solve is
+    (`parallel_line_search=False`, the rest make_solver's defaults)."""
+    plan_np, pen_np, Xbar0, Ubar0, _ = plans[0]
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, br.initial_state(), Xbar0, Ubar0), "cpu", F64)
+    solve = make_solver(br.make_barrel_roll_fns(models[1]),
+                        SolverOptions(**OPTS), parallel_line_search=False)
+    got = to_numpy(solve(plan, broadcast_batch(pen, 1), x0[None],
+                         Xbar0[None], Ubar0[None]))
+    want = jax_solve
+    assert got.success[0] and want.success
+    for f in ("iters", "ls_iters", "reg_iters", "n_entries"):
+        assert getattr(got.info, f)[0] == getattr(want.info, f), f
+    for f in ("Xbar", "Ubar", "max_tconstr"):
+        np.testing.assert_allclose(getattr(got, f)[0], getattr(want, f),
+                                   rtol=0, atol=SOLVE_TOL, err_msg=f)
+    np.testing.assert_allclose(got.cost[0], want.cost, rtol=SOLVE_TOL,
+                               atol=0)
+    np.testing.assert_allclose(got.info.cost_buf[0], want.info.cost_buf,
+                               rtol=SOLVE_TOL, atol=0)

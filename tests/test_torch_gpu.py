@@ -1,5 +1,7 @@
 """The CUDA kernels on the card: each against its plain twin, and a small
 HKD solve through the kernels against the same solve through the twins;
+small HKD solves under the JAX package's default configuration and the
+solver's other plain-PyTorch stages on the card against the CPU;
 the whole-body and SRB model layer on the card against the CPU; the MHPC
 cascade's WB functions on the card against the CPU, a small MHPC solve
 through the sweep and linroll kernels against the same solve through
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.convert import from_numpy, to_numpy
 from cafempc_tpu_torch.models import hkd, srb, synthetic_robot, wb_lane, wbm
 from cafempc_tpu_torch.ops import hkd_lq as hl
 from cafempc_tpu_torch.ops import hkd_trial as ht
@@ -308,7 +310,8 @@ def test_solve_through_kernels_matches_twins(cuda):
     iteration counts, trajectories to 1e-8."""
     args = _solve_args(cuda)
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
-    kw = dict(max_resets=16, reg_floor=1e-3)
+    kw = dict(fused_riccati=True, parallel_line_search=False,
+              max_resets=16, reg_floor=1e-3)
     before = (sw.sweep.launches, lr.linroll.launches)
     got = make_solver(hp.make_hkd_fns(), opts, **kw)(*args)
     torch.cuda.synchronize()
@@ -318,6 +321,37 @@ def test_solve_through_kernels_matches_twins(cuda):
     _same_solve(got, want)
 
 
+# make_solver configurations with no kernel on their path (the JAX
+# package's defaults and the other plain stages), keywords and SolverOptions
+PLAIN_SOLVES = {
+    "jax-defaults": ({}, {}),
+    "parallel-riccati": (dict(parallel_riccati=True), {}),
+    "sequential-stages": (dict(parallel_linear_rollout=False,
+                               parallel_line_search=False), {}),
+    "single-shooting": (dict(all_shooting=False), dict(MS=False)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(PLAIN_SOLVES))
+def test_plain_stage_solve_on_card_matches_cpu(cuda, case):
+    """A B=4 f64 solve of a 0.3 s plan under the JAX defaults (masked
+    resets, exact sweep, scan linear rollout, batched line search) and
+    the other plain-PyTorch stages, on the card against the CPU: same
+    iteration counts, trajectories to 1e-8; no kernel launches."""
+    kw, opts = PLAIN_SOLVES[case]
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2, **opts)
+    args = _solve_args(cuda)
+    fns = (sw.sweep, lr.linroll)
+    before = [f.launches for f in fns]
+    got = make_solver(hp.make_hkd_fns(), opts, reg_floor=1e-3, **kw)(*args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == before
+    want = make_solver(hp.make_hkd_fns(), opts, reg_floor=1e-3, **kw)(
+        *_solve_args(torch.device("cpu")))
+    _same_solve(from_numpy(to_numpy(got), "cpu", torch.float64), want)
+
+
 @pytest.mark.gpu
 def test_solve_through_all_four_kernels_matches_twins(cuda):
     """The `hkd` bench default's path (fused LQ and trial hooks) at B=4,
@@ -325,7 +359,8 @@ def test_solve_through_all_four_kernels_matches_twins(cuda):
     counts, trajectories to 1e-8; the twin solve launches no kernel."""
     args = _solve_args(cuda)
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
-    kw = dict(max_resets=16, reg_floor=1e-3)
+    kw = dict(fused_riccati=True, parallel_line_search=False,
+              max_resets=16, reg_floor=1e-3)
     fns = (sw.sweep, lr.linroll, hl.hkd_lq, ht.hkd_trial)
 
     def solver(plain_ops):
@@ -531,7 +566,8 @@ def test_mhpc_solve_through_kernels_matches_twins(cuda, robot):
     args = (plan, broadcast_batch(pen, 4), x0, broadcast_batch(Xbar0, 4),
             broadcast_batch(Ubar0, 4))
     opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
-    kw = dict(max_resets=16, reg_floor=1e-3)
+    kw = dict(fused_riccati=True, parallel_line_search=False,
+              max_resets=16, reg_floor=1e-3)
     fns = _mhpc_fns(cfg, robot, cuda)
     before = (sw.sweep.launches, lr.linroll.launches)
     got = make_solver(fns, opts, **kw)(*args)
@@ -563,11 +599,12 @@ def test_barrel_roll_solve_through_kernels_matches_twins(cuda, robot,
     fns = br.make_barrel_roll_fns(wbm.load_model(robot, cuda, torch.float64))
     opts = SolverOptions(max_AL_iter=1, max_DDP_iter=2)
     before = (sw.sweep.launches, lr.linroll.launches)
-    got = make_solver(fns, opts, max_resets=16)(*args)
+    kw = dict(fused_riccati=True, parallel_line_search=False, max_resets=16)
+    got = make_solver(fns, opts, **kw)(*args)
     torch.cuda.synchronize()
     after = (sw.sweep.launches, lr.linroll.launches)
     assert after[0] > before[0] and after[1] > before[1]
-    want = make_solver(fns, opts, max_resets=16, plain_ops=True)(*args)
+    want = make_solver(fns, opts, plain_ops=True, **kw)(*args)
     assert (sw.sweep.launches, lr.linroll.launches) == after
     _same_solve(got, want)
 

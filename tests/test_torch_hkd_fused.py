@@ -201,7 +201,7 @@ def test_lq_twin_matches_generic_lq_stage(problem, monkeypatch):
     for hook in (None, hf.make_hkd_fused_lq()):
         seen.clear()
         make_batched_solver(hp.make_hkd_fns(), OPTS, fused_lq=hook,
-                            **KW)(*args)
+                            fused_riccati=True, **KW)(*args)
         first.append(seen[0])
     names = ("A", "B", "lx", "lu", "lxx", "luu", "lux", "phix_T", "phixx_T",
              "defect", "w", "reg")
@@ -249,7 +249,7 @@ def _fused_port_solve(problem):
         (plan_np, pen_np, x0, Xbar0, Ubar0), "cpu", torch.float64)
     solve = make_batched_solver(
         hp.make_hkd_fns(), OPTS, fused_forward=hf.make_hkd_fused_forward(),
-        fused_lq=hf.make_hkd_fused_lq(), **KW)
+        fused_lq=hf.make_hkd_fused_lq(), fused_riccati=True, **KW)
     return to_numpy(solve(plan, broadcast_batch(pen, B), x0,
                           broadcast_batch(Xbar0, B),
                           broadcast_batch(Ubar0, B)))

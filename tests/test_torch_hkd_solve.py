@@ -125,7 +125,8 @@ def _port_solve(problem):
     plan_np, pen_np, Xbar0, Ubar0, x0 = problem
     plan, pen, x0, Xbar0, Ubar0 = from_numpy(
         (plan_np, pen_np, x0, Xbar0, Ubar0), "cpu", torch.float64)
-    solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **KW)
+    solve = make_batched_solver(hp.make_hkd_fns(), OPTS, fused_riccati=True,
+                                **KW)
     return to_numpy(solve(plan, broadcast_batch(pen, B), x0,
                           broadcast_batch(Xbar0, B),
                           broadcast_batch(Ubar0, B)))

@@ -96,7 +96,7 @@ def _port_solve(urdf_path, problem, trim_output=True):
         (plan_np, pen_np, x0, Xbar0, Ubar0), "cpu", F64)
     fns = mp.make_mhpc_fns_segmented(cfg, wbm.load_model(urdf_path, "cpu",
                                                          F64))
-    solve = make_batched_solver(fns, OPTS, **dict(KW,
+    solve = make_batched_solver(fns, OPTS, fused_riccati=True, **dict(KW,
                                                   trim_output=trim_output))
     return to_numpy(solve(plan, broadcast_batch(pen, B), x0,
                           broadcast_batch(Xbar0, B),

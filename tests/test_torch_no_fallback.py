@@ -216,11 +216,14 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_unported_variants_raise():
+    """The device meshes and the knot-sharded sweep are not ported: asking
+    for them raises rather than solving on one device."""
     fns = hp.make_hkd_fns()
-    with pytest.raises(NotImplementedError):
-        make_batched_solver(fns, SolverOptions(), parallel_line_search=True)
-    with pytest.raises(NotImplementedError):
-        make_batched_solver(fns, SolverOptions(), fused_riccati=False)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        make_batched_solver(fns, SolverOptions(), mesh=object())
+    with pytest.raises(NotImplementedError, match="knot_axis"):
+        make_batched_solver(fns, SolverOptions(), knot_axis="knot",
+                            knot_shards=2)
 
 
 @pytest.fixture(scope="module")
@@ -277,8 +280,8 @@ def test_mhpc_solve_on_cpu_runs_the_twins_and_counts_no_launch(mhpc_model):
     before = (sw.sweep.launches, lr.linroll.launches)
     res = make_batched_solver(
         mp.make_mhpc_fns_segmented(cfg, mhpc_model),
-        SolverOptions(max_AL_iter=1, max_DDP_iter=1), max_resets=16,
-        reg_floor=1e-3)(*args)
+        SolverOptions(max_AL_iter=1, max_DDP_iter=1), fused_riccati=True,
+        parallel_line_search=False, max_resets=16, reg_floor=1e-3)(*args)
     assert bool(res.success.all()) and bool(torch.isfinite(res.cost).all())
     assert int(res.info.iters[0]) == 1
     assert (sw.sweep.launches, lr.linroll.launches) == before
@@ -493,6 +496,7 @@ def test_barrel_roll_solve_on_cpu_runs_the_twins_and_counts_no_launch(
     before = (sw.sweep.launches, lr.linroll.launches)
     res = make_solver(br.make_barrel_roll_fns(mhpc_model),
                       SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                      fused_riccati=True, parallel_line_search=False,
                       max_resets=16, info_len=8)(
         plan, broadcast_batch(pen, 1), x0[None], Xbar0[None], Ubar0[None])
     assert bool(res.success.all()) and bool(torch.isfinite(res.cost).all())

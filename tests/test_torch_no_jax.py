@@ -13,6 +13,7 @@ MODULES = [
     "cafempc_tpu_torch.solver.options",
     "cafempc_tpu_torch.solver.plan",
     "cafempc_tpu_torch.solver.penalty",
+    "cafempc_tpu_torch.solver.scan",
     "cafempc_tpu_torch.solver.hsddp",
     "cafempc_tpu_torch.models.hkd",
     "cafempc_tpu_torch.models.urdf",

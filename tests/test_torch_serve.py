@@ -376,7 +376,8 @@ def _jax_mhpc_runtime(robot):
         return run
 
     opts = SolverOptions(**MHPC_OPTS)
-    kw = dict(max_resets=8, trim_output=False, iter_callback=callback)
+    kw = dict(fused_riccati=True, parallel_line_search=False, max_resets=8,
+              trim_output=False, iter_callback=callback)
     j.solve_init = adapt(make_solver(fns, opts, **kw))
     j.solve_rt = adapt(make_solver(fns, opts.runtime(), **kw))
     return j
