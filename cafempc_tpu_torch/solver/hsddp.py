@@ -20,8 +20,9 @@ dimension B, plan tensors (shared by all scenarios) carry none.
     (`fused_lq`);
   * Riccati backward sweep, inside the regularization retry loop: the
     sequential sweep with an exact Cholesky (default), the
-    associative-scan sweep (`parallel_riccati`), or `ops.sweep`, the hand
-    CUDA kernel on CUDA tensors (`fused_riccati`);
+    associative-scan sweep (`parallel_riccati`), the same scan cut into
+    knot blocks over devices (`knot_axis`), or `ops.sweep`, the hand CUDA
+    kernel on CUDA tensors (`fused_riccati`);
   * linear rollout: an associative prefix composition (default), the
     sequential recursion, or `ops.linroll` (`fused_linroll`, which
     defaults to `fused_riccati`);
@@ -396,7 +397,7 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
                 fused_linroll=None, max_resets=None, iter_callback=None,
                 reg_floor=0.0, fused_forward=None, fused_lq=None,
                 lq_knot_chunk=None, knot_axis=None, knot_shards=1,
-                plain_ops=False):
+                knot_devices=None, plain_ops=False):
     """Build ``solve(plan, pen, x0, Xbar0, Ubar0)`` over a batch: a
     `SolveResult` (the JAX package's `trim_output=True` output), or with
     trim_output=False the final `SolverState` (whose traj carries, e.g.,
@@ -441,8 +442,14 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
     lq_knot_chunk: evaluate the per-knot dynamics, cost and path-constraint
     partials in sequential pieces of this many knots (per segment): the
     same outputs, live temporaries capped at a piece.
-    knot_axis / knot_shards: the knot-sharded sweep over a device mesh;
-    not ported (ROADMAP queue 1 step 8), raises NotImplementedError.
+    knot_axis / knot_shards: the knot-sharded sweep
+    (parallel/knot_riccati.py): the associative-scan sweep's suffix
+    composition cut into knot_shards >= 2 contiguous blocks, each scanned
+    on its device, then joined by each block's tail transform.  knot_axis
+    names the mesh axis (make_batched_solver passes it); knot_devices, a
+    port keyword, lists the blocks' devices (default: every block on the
+    operands' device).  The JAX package lets knot_axis silently replace
+    fused_riccati; here asking for both raises ValueError.
     plain_ops: run the plain PyTorch twins of every kernel (the sweep, the
     linear rollout, and those of the fused hooks) even on CUDA tensors —
     for comparing a solve against its kernel solve on the card; the
@@ -459,11 +466,14 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
     if knot_axis is not None and knot_shards < 2:
         raise ValueError("knot_axis requires knot_shards >= 2 (the "
                          "static size of the mesh axis)")
-    if knot_axis is not None:
-        raise NotImplementedError(
-            "knot_axis: the knot-sharded Riccati sweep needs the device "
-            "meshes of parallel/mesh.py, not ported yet (ROADMAP queue 1 "
-            "step 8)")
+    if knot_axis is not None and fused_riccati:
+        raise ValueError("knot_axis and fused_riccati are mutually "
+                         "exclusive: the knot-sharded sweep replaces the "
+                         "sweep kernel")
+    if knot_devices is not None and (knot_axis is None
+                                     or len(knot_devices) != knot_shards):
+        raise ValueError(f"knot_devices: one device per knot block "
+                         f"(knot_shards={knot_shards}), with knot_axis")
     multiple_shooting = all_shooting and opts.MS
     if fused_forward is not None and (parallel_line_search
                                       or not multiple_shooting):
@@ -773,6 +783,24 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         G[:, 0] = G[:, 0] + _mv(H[:, 0], tr.Defect[:, 0])
         return (G, H, K, dU, Qu, Quu, Qux), dV1, dV2, ok
 
+    def backward_sweep_knot(plan, tr: TrajState, reg, ops=None):
+        """Knot-sharded (sequence-parallel) sweep (hsddp.py:749-784): the
+        parallel sweep's LFT elements, padded with identity elements to a
+        multiple of knot_shards, composed by the two-level suffix scan over
+        the blocks (parallel/knot_riccati.py), then the gains
+        knot-parallel."""
+        from cafempc_tpu_torch.parallel.knot_riccati import (
+            pad_elements, sharded_suffix_GH)
+        w = transform_steps(plan)
+        elems, (lx, lu, lxx, luu, lux) = riccati_lft_elements(
+            tr.A, tr.B, tr.C, tr.D, tr.lx, tr.lu, tr.ly, tr.lxx, tr.luu,
+            tr.lux, tr.lyy, tr.phix, tr.phixx, tr.Defect, w, reg)
+        elems_p, N1 = pad_elements(elems, knot_shards)
+        G, H = sharded_suffix_GH(
+            elems_p, knot_devices if knot_devices is not None
+            else [tr.Xbar.device] * knot_shards)
+        return gains_from_GH(tr, G[:, :N1], H[:, :N1], lu, luu, lux, w)
+
     def sweep_operands(plan, tr: TrajState):
         """Sweep-kernel operands, invariant across the regularization
         retries: the output-equation terms folded into the cost
@@ -807,7 +835,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         ok = (ok_f > 0.5) & torch.isfinite(H).all(dim=(1, 2, 3))
         return (G, H, K, dU, Qu, Quu, Qux), dv[:, 0], dv[:, 1], ok
 
-    sweep_fn = (backward_sweep_fused if fused_riccati
+    sweep_fn = (backward_sweep_knot if knot_axis is not None
+                else backward_sweep_fused if fused_riccati
                 else backward_sweep_parallel if parallel_riccati
                 else backward_sweep)
 
@@ -1179,4 +1208,5 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
     solve._backward_sweep = backward_sweep
     solve._backward_sweep_parallel = backward_sweep_parallel
     solve._backward_sweep_fused = backward_sweep_fused
+    solve._backward_sweep_knot = backward_sweep_knot
     return solve

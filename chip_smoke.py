@@ -54,7 +54,7 @@ Phases (one line of output each, unless noted):
         solve through the plain twins (equal success flags, cost within
         COST_RTOL); then the two kernels against their twins on the
         captured operands (f64 to 1e-10), their ms per launch and bound;
-     b. MHPCRuntime at B=1 in f64: initialize + 5 updates, each fed the
+     b. MHPCRuntime at B=1 in f64: initialize + 3 updates, each fed the
         solver's predicted state one MPC period ahead, each step's host
         plan build, solve and fetch ms;
      c. one solve of the `cascade500` configuration (bench.py:113-147):
@@ -82,7 +82,7 @@ Phases (one line of output each, unless noted):
   9. the offline trajectory-optimization path on the synthetic quadruped,
      f64 unless noted:
      a. the reference generator and the acrobatic references on the card
-        (trot 2.5 s, pace 1.0 s, flypace 1.2 s, the in-place barrel roll,
+        (trot 1.5 s, pace 1.0 s, flypace 1.2 s, the in-place barrel roll,
         the run-jump with 2 bounds either side): stance feet on their
         targets to 1e-8, the CSV round trip's contacts equal, the roll
         ending at 2 pi, one run-jump flight longer than 0.3 s; the seconds
@@ -108,7 +108,7 @@ Phases (one line of output each, unless noted):
         MHPC in-code default weights with the loco constraint set, 2 AL x
         4 DDP;
      f. the MHPC cascade over the in-place barrel-roll reference (with
-        the reference data's timing) in the window [0.25, 0.85] s, 8 AL:
+        the reference data's timing) in the window [0.25, 0.85] s, 4 AL:
         a discovered flight phase, the touchdown AL armed at its terminal
         knot, success with a finite cost, the largest roll angle;
  10. the JAX package's default solver configuration (masked resets, the
@@ -136,16 +136,45 @@ Phases (one line of output each, unless noted):
      f. 9b's barrel roll under the JAX demo's configuration (the
         make_solver defaults): success and iteration counts equal to 9b's,
         cost within 1e-6 relative;
-then the card's name and power limit, one JSON line of the kernels
-(`launches` each one's launches in phase 3's profiled solve, `ms` its
-device time per launch by torch.profiler, `event_ms` its CUDA-event time
-per wrapper call, host work included, and its bound: bytes over the HBM
-rate or operations over the f32 peak, whichever is larger; for the sweep
-and linroll the same figures at phase 7a's shape under `mhpc`, launches
-per profiled solve, and at phase 9b's under `barrel_roll`, f64, launches
-per solve, bound by the f64 peak) and the final `{"ok": true, "device":
-...}` line.  Exits non-zero, printing no result, without a CUDA device or
-when any phase fails.
+ 11. the batched scenario sweep (BASELINE config 5,
+     `cafempc_tpu_torch/tools/scenario_sweep.py`) and the scale-out layer
+     (`parallel/{mesh, knot_riccati}.py`), f32 unless noted:
+     a. the `mhpc` sweep's warm-started MPC chain (the tool's
+        `run_case_chain`) on a bound gait generated on the synthetic
+        quadruped (2.0 s): window 0.75 s (25 WB + 10 SRB knots), 2 plans a
+        scenario, chunk 256, 4 AL x 1 DDP, pushes N(0, 0.25^2) m/s on the
+        body's linear velocity, noise 0.02, total 512 (one warm-up chunk,
+        one timed chunk, the launch counts set to 0 as the timed window
+        opens and read after it): success rate, cost p50/p95, feasibility
+        by chain step, solves/s, iterations, launches, peak memory; all
+        costs and propagated states finite; then the chain at B=8 through
+        the kernels and through their twins (equal success flags and
+        iteration counts, cost within COST_RTOL);
+     b. the `hkd` sweep (`run_case`, the JAX defaults, 2 AL x 1 DDP) on
+        the same gait, chunk 256, a warm-up and a timed chunk;
+     c. the knot-sharded sweep at B=1 in f64 on 10b's operands (the HKD
+        runtime plan; 9b's barrel roll), 4 knot blocks on the one card:
+        against the exact sweep to PLAIN_SWEEP_TOL, device ms, launches
+        and CUDA-event ms per call beside 10b's scan sweep; then the
+        exact, scan and knot sweeps in f32 on the same operands, their
+        gains against the f64 exact sweep's;
+     d. 3b's plan and keywords with the knot-sharded sweep in place of the
+        sweep kernel over `scenario_knot_mesh(1, 4)` of the card, against
+        the same keywords with parallel_riccati and no mesh: equal success
+        flags and iterations, cost within COST_RTOL, ms per solve;
+     e. 3b's solve through `scenario_mesh()`: bit for bit 3b's;
+each phase's wall seconds (a `[t]` line after it), then the card's name
+and power limit, one JSON line of the kernels (`launches` each one's
+launches in phase 3's profiled solve, `ms` its device time per launch by
+torch.profiler, `event_ms` its CUDA-event time per wrapper call, host work
+included, and its bound: bytes over the HBM rate or operations over the
+f32 peak, whichever is larger; for the sweep and linroll the same figures
+at phase 7a's shape under `mhpc`, launches per profiled solve, under
+`sweep_chain` with 11a's launches in its timed chunk (the same shape), and
+at phase 9b's under `barrel_roll`, f64, launches per solve, bound by the
+f64 peak) and the final `{"ok": true, "device": ...}` line.  Exits
+non-zero, printing no result, without a CUDA device or when any phase
+fails.
 """
 import json
 import os
@@ -177,6 +206,7 @@ from cafempc_tpu_torch.ops import hkd_lq as hkd_lq_mod
 from cafempc_tpu_torch.ops import hkd_trial as hkd_trial_mod
 from cafempc_tpu_torch.ops import linroll as linroll_mod
 from cafempc_tpu_torch.ops import sweep as sweep_mod
+from cafempc_tpu_torch.parallel import mesh as mesh_mod
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch, make_batched_solver
 from cafempc_tpu_torch.problems import barrel_roll as br
 from cafempc_tpu_torch.problems import hkd_fused as hf
@@ -195,6 +225,7 @@ from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver import hsddp
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.tools import scenario_sweep as ss
 
 DEVICE = "cuda"
 B = 256
@@ -1027,8 +1058,8 @@ def phase_models(label):
 # synthetic bound reference
 MHPC_B = 256
 CASCADE_B = 128
-N_MHPC_TIMED = 3
-N_RT_UPDATES = 5
+N_MHPC_TIMED = 2
+N_RT_UPDATES = 3
 MHPC_OPTS = SolverOptions(max_AL_iter=4, max_DDP_iter=1)
 MHPC_KW = dict(trim_output=True, parallel_line_search=False,
                fused_riccati=True, reg_floor=1e-3)
@@ -1695,6 +1726,7 @@ PUSH_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
 LOCO_OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=4)
 IK_TOL = 1e-8           # stance foot against its target
 RUN_JUMP_FLIGHT_S = 0.3  # the run-jump's one flight is longer than this
+BR_REF_AL = 4           # 9f: AL iterations (the JAX test's 8, cut for time)
 
 
 def info_text(info, b=0):
@@ -1717,8 +1749,8 @@ def phase_references(label, model, tmp):
     the stance feet against their targets, the CSV round trip, the roll
     and the run-jump's one flight.  Returns the flypace CSV's path."""
     refs = {
-        "trot 2.5 s": lambda: generator.generate_reference(
-            "trot", duration=2.5, vx=0.5, transition_time=1.0, model=model),
+        "trot 1.5 s": lambda: generator.generate_reference(
+            "trot", duration=1.5, vx=0.5, transition_time=1.0, model=model),
         "pace 1.0 s": lambda: generator.generate_reference(
             "pace", duration=1.0, vx=0.2, model=model),
         "flypace 1.2 s": lambda: generator.generate_reference(
@@ -1987,7 +2019,7 @@ def phase_br_reference(label, model):
     cfg, plan_np, meta, args = ex_brref.problem(ref, DEVICE)
     solve = make_batched_solver(
         mp.make_mhpc_fns_segmented(cfg, model),
-        SolverOptions(max_AL_iter=8), fused_riccati=True,
+        SolverOptions(max_AL_iter=BR_REF_AL), fused_riccati=True,
         parallel_line_search=False, max_resets=ex_brref.MAX_RESETS)
     torch.cuda.synchronize()
     reset_counts()
@@ -1999,8 +2031,8 @@ def phase_br_reference(label, model):
     print(f"[9f] MHPC cascade over the in-place barrel-roll reference "
           f"(generated in {ref_s:.2f} s; window [{ex_brref.T_START}, "
           f"{ex_brref.T_START + ex_brref.PLAN_DUR_WB}] s, WB phases "
-          f"{[(p[2], p[3].tolist()) for p in meta['wb_phases']]}), B=1 f64, 8"
-          f" AL: {sec:.2f} s; success {bool(res.success)}, cost "
+          f"{[(p[2], p[3].tolist()) for p in meta['wb_phases']]}), B=1 f64, "
+          f"{BR_REF_AL} AL: {sec:.2f} s; success {bool(res.success)}, cost "
           f"{float(res.cost):.6g}, feas {float(res.feas):.4g}, iters "
           f"{int(res.info.iters)}; flight phases {len(flights)}, touchdown "
           f"AL entries armed {armed}; roll max {roll:.4f} rad; kernel "
@@ -2017,7 +2049,6 @@ def phase_trajopt(label):
     """Phase 9 (9a-9f) on the synthetic quadruped and the synthetic
     barrel-roll settings, in a temporary directory.  Returns the sweep's
     and linroll's figures at the barrel-roll shape."""
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         urdf = synthetic_robot.write_synthetic_quadruped_urdf(tmp)
         setting_dir = write_synthetic_br_settings(os.path.join(tmp, "br"))
@@ -2028,8 +2059,6 @@ def phase_trajopt(label):
         phase_barrel_roll_push(label, m32, m64, setting_dir)
         phase_loco(label, m64, csv)
         phase_br_reference(label, m64)
-    print(f"[9] phase 9 took {time.perf_counter() - t0:.1f} s [{label}]",
-          flush=True)
     return figs
 
 
@@ -2165,6 +2194,8 @@ def phase_b1_sweeps(label, name, captured):
     if bad:
         fail(f"sweeps disagree with the exact sweep on the {name} operands: "
              f"{bad}")
+    return dict(plan=plan, tr=tr, reg=reg, exact=outs["exact"],
+                scan=times["scan"])
 
 
 def phase_single_shooting(label):
@@ -2304,8 +2335,8 @@ def phase_barrel_roll_defaults(label, trajopt):
 
 
 def phase_plain_stages(label, unfused, models, mhpc, trajopt):
-    """Phase 10 (10a-10f)."""
-    t0 = time.perf_counter()
+    """Phase 10 (10a-10f).  Returns 10b's operands, exact sweeps and scan
+    times by name of the operands."""
     phase_jax_default_hkd(label, unfused)
     args, _ = bench_problem(torch.float64)
     args = (args[0],) + tuple(convert.scenario(a, slice(0, 1)) for a in
@@ -2313,14 +2344,302 @@ def phase_plain_stages(label, unfused, models, mhpc, trajopt):
     solve_c, seen = capturing_solver(hp.make_hkd_fns(), SolverOptions(),
                                      **dict(SOLVE_KW, reg_floor=0.0))
     solve_c(*args).cost.cpu()
-    phase_b1_sweeps(label, "hkd runtime plan", seen["sweep"])
-    phase_b1_sweeps(label, "barrel-roll (9b)", trajopt["sweep_ops"])
+    b1 = {name: phase_b1_sweeps(label, name, ops) for name, ops in (
+        ("hkd runtime plan", seen["sweep"]),
+        ("barrel-roll (9b)", trajopt["sweep_ops"]))}
     phase_single_shooting(label)
     phase_mhpc_masked(label, models, mhpc)
     phase_cascade500_chunked(label, models)
     phase_barrel_roll_defaults(label, trajopt)
-    print(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s [{label}]",
+    return b1
+
+
+# Phase 11: the batched scenario sweep (BASELINE config 5,
+# cafempc_tpu_torch/tools/scenario_sweep.py) and the scale-out layer
+# (parallel/{mesh, knot_riccati}.py)
+SWEEP_CHUNK = 256      # 11a-11b: scenarios a chunk (the tool's default)
+SWEEP_TOTAL = 512      # 11a: 2 chunks of the chain: warm-up + timed
+SWEEP_CHAIN = 2        # 11a: plans a chain (the tool's default is 4)
+SWEEP_TWIN_B = 8       # 11a: the kernel chain against its twin chain
+KNOT_BLOCKS = 4        # 11c-11d: knot blocks on the one card
+N_MESH_TIMED = 3       # 11d-11e: timed solves of each configuration
+
+
+def sweep_text(r):
+    """The tool's summary figures of one case."""
+    keys = ("success_rate", "cost_p50", "cost_p95", "solves_per_s",
+            "timed_solves", "timed_seconds", "iters_mean", "ls_iters_mean",
+            "ls_iters_max", "reg_iters_mean", "reg_iters_max")
+    feas = ("dyn_feas_p50_by_step" if "dyn_feas_p50_by_step" in r
+            else "dyn_feas_p50")
+    return ", ".join(f"{k} {r[k]}" for k in keys) + f", {feas} {r[feas]}"
+
+
+def recording(solve, log):
+    """solve(...) that also keeps each result."""
+    def run(*args):
+        log.append(solve(*args))
+        return log[-1]
+    return run
+
+
+def sweep_chain(model, csv, cfg, fns, opts, batch, total, seen_bs=None,
+                plain_ops=False, on_timed=None):
+    """The tool's run_case_chain on the gait CSV at SWEEP_CHAIN plans (f32,
+    the tool's mhpc keywords, rng seed 0): (summary, solve results, the
+    propagated states)."""
+    qr = ss.quad_ref(csv, ss.MHPC_WINDOW)
+    steps, props = ss.mhpc_chain(qr, cfg, model, DEVICE, torch.float32,
+                                 SWEEP_CHAIN)
+    states, log = [], []
+    kept = [lambda x, U, p=p: states.append(p(x, U)) or states[-1]
+            for p in props]
+    solve = make_batched_solver(fns, opts, plain_ops=plain_ops, **ss.MHPC_KW)
+    r = ss.run_case_chain(recording(solve, log), None, steps, total, batch,
+                          np.random.default_rng(SEED), torch.float32, kept,
+                          seen_bs=seen_bs, on_timed=on_timed)
+    return r, log, states
+
+
+def phase_sweep_mhpc(label, models, tmp):
+    """11a: the mhpc sweep's MPC chain on a generated bound gait at B=256:
+    one warm-up chunk and one timed chunk, the kernels' launches counted
+    over the timed chunk; all costs and propagated states finite.  Then
+    the same chain at B=8 through the kernels and through their twins:
+    equal success flags and iteration counts, cost within COST_RTOL.
+    Returns the gait CSV and the timed chunk's launches."""
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    csv, made = ss.gait_csv(os.path.join(tmp, "refs"), "bound",
+                            models[torch.float64])
+    gen_s = time.perf_counter() - t0
+    cfg, opts, settings = ss.mhpc_settings()
+    fns = mp.make_mhpc_fns_segmented(cfg, models[f32])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, log, states = sweep_chain(models[f32], csv, cfg, fns, opts,
+                                 SWEEP_CHUNK, SWEEP_TOTAL,
+                                 on_timed=reset_counts)
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = (all(bool(torch.isfinite(s.cost).all()) for s in log),
+              all(bool(torch.isfinite(x).all()) for x in states))
+    print(f"[11a] mhpc sweep chain (bound gait generated {made} in "
+          f"{gen_s:.1f} s; {settings}), {SWEEP_CHAIN} plans a scenario, "
+          f"chunk {SWEEP_CHUNK}, f32, {r['n_scenarios']} scenarios in "
+          f"{wall:.1f} s (a warm-up chunk, then {r['timed_solves']} timed "
+          f"solves): {sweep_text(r)}; kernel launches in the timed "
+          f"chunk {launches}; costs finite {finite[0]}, propagated states "
+          f"finite {finite[1]}; peak device memory {peak:.2f} GiB "
+          f"[{label}]", flush=True)
+    missed = [k for k in PATH_KERNELS if launches[k] == 0]
+    if missed:
+        fail(f"kernels of the sweep chain were never launched in its timed "
+             f"chunk: {missed}")
+    if not all(finite):
+        fail("the sweep chain gave a non-finite cost or state")
+    runs = {}
+    for plain in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[plain] = sweep_chain(models[f32], csv, cfg, fns, opts,
+                                  SWEEP_TWIN_B, SWEEP_TWIN_B * SWEEP_CHAIN,
+                                  seen_bs={SWEEP_TWIN_B}, plain_ops=plain)
+        runs[plain] += (read_counts(), time.perf_counter() - t0)
+    (_, log_k, _, n_k, s_k), (_, log_p, _, n_p, s_p) = runs[False], \
+        runs[True]
+    pairs = [same_solves((a, a.cost, a.success), (b, b.cost, b.success))
+             for a, b in zip(log_k, log_p)]
+    same, dc = all(p[0] for p in pairs), max(p[1] for p in pairs)
+    print(f"[11a] the chain at B={SWEEP_TWIN_B}, kernels ({s_k:.1f} s, "
+          f"launches {n_k}) vs twins ({s_p:.1f} s, launches {n_p}): success "
+          f"flags and iteration counts equal at every step {same}, cost rel "
+          f"diff {dc:.3e} (tol {COST_RTOL:g}) [{label}]", flush=True)
+    if any(n_p.values()) or min(n_k[k] for k in PATH_KERNELS) == 0:
+        fail("the B=8 chains launched the wrong kernels")
+    if not (same and dc <= COST_RTOL):
+        fail("the sweep chain through the kernels disagrees with its twin")
+    return csv, launches
+
+
+def phase_sweep_hkd(label, csv):
+    """11b: the hkd sweep's one-shot solves (the JAX defaults, 2 AL x 1
+    DDP) on the generated bound gait at B=256: a warm-up chunk and a timed
+    one."""
+    opts, settings = ss.hkd_settings()
+    fns, plan, pen, x0, Xb, Ub = ss.build_hkd_case(csv, DEVICE,
+                                                   torch.float32)
+    solve = make_batched_solver(fns, opts, trim_output=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    r = ss.run_case(solve, None, plan, pen, x0, Xb, Ub, 2 * SWEEP_CHUNK,
+                    SWEEP_CHUNK, np.random.default_rng(SEED), torch.float32)
+    print(f"[11b] hkd sweep (bound gait, {int(plan.step.is_reset.sum())} "
+          f"resets; {settings}), chunk {SWEEP_CHUNK}, f32, {r['n']} "
+          f"scenarios in {time.perf_counter() - t0:.1f} s: {sweep_text(r)}; "
+          f"kernel launches {read_counts()} [{label}]", flush=True)
+    if r["success_rate"] != 1.0 or not np.isfinite(r["cost_p95"]):
+        fail("an hkd sweep scenario failed")
+
+
+def phase_knot_sweeps(label, b1):
+    """11c: the knot-sharded sweep at B=1 in f64 on 10b's operands, its
+    KNOT_BLOCKS blocks on the one card: against the exact sweep to
+    PLAIN_SWEEP_TOL; device ms, launches and CUDA-event ms per call beside
+    10b's scan sweep."""
+    stages = make_solver(hp.make_hkd_fns(), SolverOptions(), knot_axis="knot",
+                         knot_shards=KNOT_BLOCKS,
+                         knot_devices=[torch.device(DEVICE)] * KNOT_BLOCKS)
+    every = torch.ones(1, dtype=torch.bool, device=DEVICE)
+    for name, d in b1.items():
+        reset_counts()
+        f = lambda: stages._backward_sweep_knot(d["plan"], d["tr"], d["reg"])
+        out = f()
+        launched = read_counts()
+        errs = {k: errors(out[0][i], d["exact"][0][i], every)[1]
+                for i, k in ((0, "G"), (1, "H"), (2, "K"))}
+        prof = profile_device(lambda: (f(), torch.cuda.synchronize()),
+                              host=False)
+        dev_ms = prof[2] if prof else float("nan")
+        n_l = f"{prof[0]} launches" if prof else "launches not measured"
+        ev = time_ms(f, N_SWEEP_TIMED)
+        sd, sn, se = d["scan"]
+        print(f"[11c] knot-sharded sweep, {KNOT_BLOCKS} blocks on the card, "
+              f"{name} operands (B=1 f64): ok {bool(out[3][0])}; against the "
+              f"exact sweep, normalized: " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {PLAIN_SWEEP_TOL}); per call: device {dev_ms:.4f} ms "
+              f"({n_l}), event {ev:.4f} ms; 10b's scan sweep: device "
+              f"{sd:.4f} ms ({sn}), event {se:.4f} ms; kernel launches "
+              f"{launched} [{label}]", flush=True)
+        if not bool(out[3][0]) or any(not e <= PLAIN_SWEEP_TOL[k]
+                                      for k, e in errs.items()):
+            fail(f"the knot-sharded sweep disagrees with the exact sweep on "
+                 f"the {name} operands: {errs}")
+        if any(launched.values()):
+            fail(f"the knot-sharded sweep launched kernels: {launched}")
+        print(f"[11c] the same in f32 against the f64 exact sweep, "
+              f"{name} operands, normalized K error: " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in f32_k_errors(d, stages).items())
+              + f" [{label}]", flush=True)
+
+
+def f32_k_errors(d, knot_stages):
+    """The gains K of the exact, scan and knot-sharded sweeps run in f32
+    on 10b's operands, each against the f64 exact sweep's, normalized."""
+    tr = hsddp.TrajState(*[t.float() if torch.is_tensor(t)
+                           and t.is_floating_point() else t for t in d["tr"]])
+    reg = d["reg"].float()
+    stages = make_solver(hp.make_hkd_fns(), SolverOptions())
+    runs = {"exact": stages._backward_sweep,
+            "scan": stages._backward_sweep_parallel,
+            "knot": knot_stages._backward_sweep_knot}
+    every = torch.ones(1, dtype=torch.bool, device=DEVICE)
+    return {k: errors(f(d["plan"], tr, reg)[0][2].double(), d["exact"][0][2],
+                      every)[1] for k, f in runs.items()}
+
+
+def same_solves(a, b):
+    """Success flags and iteration counts equal; the cost rel diff."""
+    same = torch.equal(a[2], b[2]) and all(
+        torch.equal(getattr(a[0].info, f), getattr(b[0].info, f))
+        for f in ("iters", "ls_iters", "reg_iters"))
+    both = torch.isfinite(a[1]) & torch.isfinite(b[1])
+    return same, float(((a[1] - b[1]) / b[1])[both].abs().max())
+
+
+def phase_meshes(label, unfused):
+    """11d: 3b's plan and keywords with the knot-sharded sweep in place of
+    the sweep kernel, over a (scenario 1, knot KNOT_BLOCKS) mesh of the one
+    card, against the same keywords with parallel_riccati and no mesh;
+    11e: 3b's solve itself through a scenario mesh of the visible cards,
+    equal to 3b's bit for bit."""
+    args, _ = bench_problem(torch.float32)
+    card_dev = torch.device(DEVICE)
+    kw = dict(SOLVE_KW, fused_riccati=False, fused_linroll=True)
+    runs = {}
+    for name, extra in (
+            ("knot mesh", dict(mesh=mesh_mod.scenario_knot_mesh(
+                1, KNOT_BLOCKS, devices=[card_dev] * KNOT_BLOCKS))),
+            ("parallel_riccati", dict(parallel_riccati=True))):
+        solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **kw, **extra)
+        reset_counts()
+        res, cost, success, ms = timed_solves(solve, args, N_MESH_TIMED)
+        runs[name] = (res, cost, success, statistics.median(ms),
+                      read_counts())
+    same, dc = same_solves(runs["knot mesh"], runs["parallel_riccati"])
+    print(f"[11d] hkd B={B} f32, 3b's keywords with the sweep kernel "
+          f"replaced: " + "; ".join(
+              f"{k}: median {r[3]:.2f} ms per solve, success "
+              f"{int(r[2].sum())}/{B}, launches over {N_MESH_TIMED + 1} "
+              f"solves {r[4]}" for k, r in runs.items())
+          + f"; success flags and iteration counts equal {same}, cost rel "
+          f"diff {dc:.3e} (tol {COST_RTOL:g}) [{label}]", flush=True)
+    if not (same and dc <= COST_RTOL) or int(runs["knot mesh"][2].sum()) != B:
+        fail("the knot-mesh solve disagrees with the parallel_riccati solve")
+    mesh = mesh_mod.scenario_mesh()
+    solve = make_batched_solver(hp.make_hkd_fns(), OPTS, mesh=mesh,
+                                **SOLVE_KW)
+    reset_counts()
+    res, cost, success, ms = timed_solves(solve, args, N_MESH_TIMED)
+    launches = read_counts()
+    ref = unfused[0]
+    equal = {f: torch.equal(getattr(res, f), getattr(ref, f))
+             for f in ("Xbar", "Ubar", "K", "cost", "success", "feas")}
+    equal["info"] = all(torch.equal(a, b) for a, b in zip(res.info,
+                                                          ref.info))
+    print(f"[11e] 3b's solve through scenario_mesh() ({mesh}): median "
+          f"{statistics.median(ms):.2f} ms per solve; launches over "
+          f"{N_MESH_TIMED + 1} solves {launches}; bit for bit equal to 3b's "
+          f"{equal} [{label}]", flush=True)
+    if not all(equal.values()):
+        fail(f"the meshed 3b solve is not 3b's: {equal}")
+
+
+def phase_sweep(label, models, b1, unfused):
+    """Phase 11 (11a-11e); returns 11a's launches in its timed chunk."""
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, launches = phase_sweep_mhpc(label, models, tmp)
+        phase_sweep_hkd(label, csv)
+    phase_knot_sweeps(label, b1)
+    phase_meshes(label, unfused)
+    return launches
+
+
+def timed_phase(n, fn, label, *args):
+    """fn(label, *args), printing its wall seconds as phase n's."""
+    t0 = time.perf_counter()
+    out = fn(label, *args)
+    print(f"[t] phase {n} took {time.perf_counter() - t0:.1f} s [{label}]",
           flush=True)
+    return out
+
+
+def phase_kernels_all(label):
+    """Phase 2: every kernel against its twin (2, then the B=1 and xs=36
+    shapes, then the HKD kernels); returns the f32 figures."""
+    f32 = phase_kernels(label)
+    check_sweep_b1(label)
+    check_linroll_shapes(label)
+    f32.update(phase_hkd_kernels(label))
+    return f32
+
+
+def phase_mhpc_all(label, models):
+    """Phase 7 (7a-7c); returns 7a's figures."""
+    mhpc = phase_mhpc(label, models)
+    phase_mhpc_runtime(label, models[torch.float64])
+    phase_cascade500(label, models[torch.float32])
+    return mhpc
+
+
+def phase_serving(label, models):
+    """Phase 8 (8a-8d)."""
+    phase_wire(label)
+    phase_serve_hkd(label)
+    phase_serve_mhpc(label, models[torch.float64])
 
 
 def main():
@@ -2333,29 +2652,27 @@ def main():
     label = card()
     print(f"[0] card: {label}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
     so, build_s, log = _ext.build(force=True)
     print(f"[1] built {so.name} with nvcc for sm_90a in {build_s:.1f} s; "
           + " | ".join(l.strip() for l in log.splitlines()
                        if "registers" in l or "Compiling entry" in l
                        or "spill" in l),
           flush=True)
-    f32 = phase_kernels(label)
-    check_sweep_b1(label)
-    check_linroll_shapes(label)
-    f32.update(phase_hkd_kernels(label))
-    launches, unfused = phase_solves(label)
+    print(f"[t] phase 1 took {time.perf_counter() - t0:.1f} s [{label}]",
+          flush=True)
+    f32 = timed_phase(2, phase_kernels_all, label)
+    launches, unfused = timed_phase(3, phase_solves, label)
     args, _ = bench_problem(torch.float64)
-    phase_runtime(label, args[2][0].cpu().numpy())
-    phase_models(label)
+    timed_phase(5, phase_runtime, label, args[2][0].cpu().numpy())
+    timed_phase(6, phase_models, label)
     models = mhpc_models()
-    mhpc = phase_mhpc(label, models)
-    phase_mhpc_runtime(label, models[torch.float64])
-    phase_cascade500(label, models[torch.float32])
-    phase_wire(label)
-    phase_serve_hkd(label)
-    phase_serve_mhpc(label, models[torch.float64])
-    trajopt = phase_trajopt(label)
-    phase_plain_stages(label, unfused, models, mhpc, trajopt)
+    mhpc = timed_phase(7, phase_mhpc_all, label, models)
+    timed_phase(8, phase_serving, label, models)
+    trajopt = timed_phase(9, phase_trajopt, label)
+    b1 = timed_phase(10, phase_plain_stages, label, unfused, models, mhpc,
+                     trajopt)
+    chain = timed_phase(11, phase_sweep, label, models, b1, unfused)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line
@@ -2366,16 +2683,20 @@ def main():
 
     def on_paths(name):
         """The kernel on phase 7a's path at the mhpc solve's shape (f32),
-        and on phase 9b's at the barrel roll's (f64)."""
+        on 11a's sweep chain at the same shape (launches in its timed
+        chunk of 2 x 256 solves), and on phase 9b's at the barrel roll's
+        (f64)."""
         if name not in PATH_KERNELS:
             return {}
         return {path: {
-            "launches": figs["launches"][name],
+            "launches": (chain if path == "sweep_chain"
+                         else figs["launches"])[name],
             "max_abs_err": figs[f"{name}_err"], "ms": figs[f"{name}_ms"],
             "plain_ms": figs[f"{name}_plain_ms"],
             "bound_ms": figs[f"{name}_bound"][0],
             "bound_by": figs[f"{name}_bound"][1], "library_ms": None}
-            for path, figs in (("mhpc", mhpc), ("barrel_roll", trajopt))}
+            for path, figs in (("mhpc", mhpc), ("sweep_chain", mhpc),
+                               ("barrel_roll", trajopt))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"cafempc_tpu_torch/ops/csrc/{name}.cu",

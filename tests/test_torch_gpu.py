@@ -664,3 +664,88 @@ def test_served_hkd_solves_launch_the_kernels(cuda):
         pass
     assert [c.mpc_times[0] for c in cmds] == [0.0, 0.02]
     assert all(np.isfinite(c.hkd_controls).all() for c in cmds)
+
+
+# ---- the scale-out layer and the scenario sweep -------------------------
+
+@pytest.mark.gpu
+def test_knot_sweep_on_card_matches_exact_sweep(cuda):
+    """The knot-sharded sweep stage over 4 blocks on the card (f64, B=3,
+    N=23: the identity padding, transform steps inside and between
+    blocks) against the exact sequential sweep on the same operands:
+    equal ok flags, G, H and K of the ok scenarios to 1e-7 normalized; no
+    kernel launch."""
+    d = make_inputs(np.random.default_rng(17), 3, 23, 6, 3, w_idx=(5, 8, 16),
+                    luu_shift=0.5, fail=(2,))
+    w = d["w"] > 0
+    f64 = dict(device=cuda, dtype=torch.float64)
+    dyn = torch.as_tensor(~w, device=cuda)[None, :, None]
+    t = {k: torch.as_tensor(d[k], **f64) for k in (
+        "A", "Bm", "lx", "lu", "lxx", "luu", "lux", "defect")}
+    phix = torch.zeros(3, 24, 6, **f64)
+    phixx = torch.zeros(3, 24, 6, 6, **f64)
+    phix[:, :-1] = torch.where(dyn, 0.0, t["lx"])
+    phixx[:, :-1] = torch.where(dyn[..., None], 0.0, t["lxx"])
+    phix[:, -1] = torch.as_tensor(d["phix_T"], **f64)
+    phixx[:, -1] = torch.as_tensor(d["phixx_T"], **f64)
+    tr = hsddp.init_traj(type("P", (), {"n_steps": 23})(), 6, 3, 0,
+                         torch.zeros(3, 24, 6, **f64),
+                         torch.zeros(3, 23, 3, **f64))
+    tr = tr._replace(A=t["A"], B=t["Bm"] * dyn[..., None],
+                     lx=t["lx"] * dyn, lu=t["lu"] * dyn,
+                     lxx=t["lxx"] * dyn[..., None],
+                     luu=t["luu"] * dyn[..., None],
+                     lux=t["lux"] * dyn[..., None], phix=phix, phixx=phixx,
+                     Defect=t["defect"])
+    plan = type("P", (), {"step": type("S", (), dict(
+        is_reset=torch.as_tensor(w, **f64),
+        active=torch.ones(23, **f64)))()})()
+    reg = torch.as_tensor(d["reg"], **f64)
+    solve = make_solver(hp.make_hkd_fns(), SolverOptions(), knot_axis="knot",
+                        knot_shards=4, knot_devices=[cuda] * 4)
+    before = sw.sweep.launches
+    got = solve._backward_sweep_knot(plan, tr, reg)
+    want = solve._backward_sweep(plan, tr, reg)
+    assert sw.sweep.launches == before
+    assert torch.equal(got[3], want[3]) and got[3].tolist() == [True, True,
+                                                                 False]
+    ok = got[3]
+    for i in (0, 1, 2):                                   # G, H, K
+        assert got[0][i].device.type == cuda.type
+        assert _rel_err(got[0][i][ok], want[0][i][ok]) < 1e-7
+
+
+@pytest.mark.gpu
+def test_mhpc_chain_through_kernels_matches_twins(cuda, robot):
+    """The scenario sweep's MPC chain (small cascaded plan from 0.04 s,
+    2 plans, B=8, f64, 2 AL x 1 DDP): through the sweep and linroll
+    kernels against the same chain through their twins, on the same
+    scenarios: same success flags and iteration counts at both steps,
+    trajectories to 1e-8; the twin chain launches no kernel."""
+    from cafempc_tpu_torch.tools import scenario_sweep as ss
+    cfg = mp.MHPCConfig(**MHPC_PLAN)
+    model = wbm.load_model(robot, cuda, torch.float64)
+    fns = mp.make_mhpc_fns_segmented(cfg, model)
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
+    runs = {}
+    for plain in (False, True):
+        qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
+        qr.initialize(0.4)
+        qr.step(cfg.dt_mpc)
+        qr.step(cfg.dt_mpc)
+        steps, props = ss.mhpc_chain(qr, cfg, model, cuda, torch.float64, 2)
+        solve = make_solver(fns, opts, plain_ops=plain, **ss.MHPC_KW)
+        log = []
+        before = (sw.sweep.launches, lr.linroll.launches)
+        r = ss.run_case_chain(lambda *a: log.append(solve(*a)) or log[-1],
+                              None, steps, 8, 8, np.random.default_rng(0),
+                              torch.float64, props, seen_bs={8})
+        torch.cuda.synchronize()
+        launched = (sw.sweep.launches - before[0],
+                    lr.linroll.launches - before[1])
+        assert (launched == (0, 0)) if plain else min(launched) > 0
+        assert r["n_solves"] == 16 and len(log) == 2
+        runs[plain] = log
+    for got, want in zip(runs[False], runs[True]):
+        assert bool(torch.isfinite(got.cost).all())
+        _same_solve(got, want)

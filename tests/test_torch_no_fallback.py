@@ -215,15 +215,20 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         _ext.nvcc_path()
 
 
-def test_unported_variants_raise():
-    """The device meshes and the knot-sharded sweep are not ported: asking
-    for them raises rather than solving on one device."""
+def test_unported_variants_raise(monkeypatch):
+    """The device meshes are ported and take no stand-in: a mesh that is
+    not a parallel.mesh.Mesh is refused, and without a CUDA device a mesh
+    is built only from explicit devices (no CPU fallback)."""
+    from cafempc_tpu_torch.parallel.mesh import (scenario_knot_mesh,
+                                                 scenario_mesh)
     fns = hp.make_hkd_fns()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         make_batched_solver(fns, SolverOptions(), mesh=object())
-    with pytest.raises(NotImplementedError, match="knot_axis"):
-        make_batched_solver(fns, SolverOptions(), knot_axis="knot",
-                            knot_shards=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (scenario_mesh, lambda: scenario_knot_mesh(1, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert scenario_mesh(devices=["cpu"]).shape == {"scenario": 1}
 
 
 @pytest.fixture(scope="module")
@@ -456,6 +461,31 @@ def test_offline_examples_default_to_cuda_and_refuse_without_it(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(_Stop):
         ex.main(["--out", str(tmp_path)])
+    assert seen == ["cpu", "cuda"]
+
+
+def test_scenario_sweep_defaults_to_cuda_and_refuses_without_it(
+        monkeypatch, tmp_path):
+    """The scenario sweep loads its robot on cuda unless --device cpu is
+    given; without a CUDA device it refuses to start."""
+    from cafempc_tpu_torch.tools import scenario_sweep as ss
+    seen = []
+
+    def load_model(urdf, device, dtype):
+        seen.append(str(device))
+        raise _Stop
+    monkeypatch.setattr(ss.wbm, "load_model", load_model)
+    argv = ["--out", str(tmp_path / "sweep.json")]
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ss.main(argv)
+        assert seen == []
+    with pytest.raises(_Stop):
+        ss.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(_Stop):
+        ss.main(argv)
     assert seen == ["cpu", "cuda"]
 
 

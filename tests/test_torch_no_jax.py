@@ -40,6 +40,7 @@ MODULES = [
     "cafempc_tpu_torch.problems.loco_problem",
     "cafempc_tpu_torch.utils.traj_logging",
     "cafempc_tpu_torch.parallel.mesh",
+    "cafempc_tpu_torch.parallel.knot_riccati",
     "cafempc_tpu_torch.runtime.warm_start",
     "cafempc_tpu_torch.runtime.mpc",
     "cafempc_tpu_torch.runtime.mhpc_runtime",
@@ -53,6 +54,8 @@ MODULES = [
     "cafempc_tpu_torch.examples.barrel_roll_demo",
     "cafempc_tpu_torch.examples.loco_to_demo",
     "cafempc_tpu_torch.examples.br_reference_demo",
+    "cafempc_tpu_torch.tools",
+    "cafempc_tpu_torch.tools.scenario_sweep",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

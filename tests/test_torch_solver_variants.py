@@ -23,7 +23,8 @@ the JAX package's `make_solver`, f64 on CPU, with the same keywords:
   JAX defaults against JAX's `CAFEMPC_WB_LANE=0` path, unchunked and with
   `lq_knot_chunk=5` (which divides neither segment), and the chunked LQ
   equal to the unchunked one;
-* every `ValueError` of the JAX make_solver, and `knot_axis`.
+* every `ValueError` of the JAX make_solver, and `knot_axis` (the knot-
+  sharded sweep solving as `parallel_riccati` does).
 
 The barrel roll's masked solve is held to JAX's in
 tests/test_torch_barrel_roll.py, beside the JAX solve it already compiles.
@@ -465,10 +466,21 @@ def test_make_solver_raises_as_jax_does(case):
         make_solver(fns, SolverOptions(**opts), **kw)
 
 
-def test_knot_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 step 8"):
+def test_knot_axis_is_not_ported(hkd):
+    """The knot-sharded sweep is ported: knot_axis with fused_riccati raises
+    (the JAX package lets knot_axis silently replace the kernel), and
+    without it the HKD solve over 3 knot blocks is the parallel_riccati
+    solve (which test_hkd_solve_matches_jax holds to JAX's)."""
+    with pytest.raises(ValueError, match="mutually exclusive"):
         make_solver(hp.make_hkd_fns(), SolverOptions(), knot_axis="knot",
-                    knot_shards=2)
+                    knot_shards=2, fused_riccati=True)
+    opts = SolverOptions(**OPTS)
+    want = make_batched_solver(hp.make_hkd_fns(), opts, reg_floor=1e-3,
+                               parallel_riccati=True)(*_port_args(hkd))
+    got = make_batched_solver(hp.make_hkd_fns(), opts, reg_floor=1e-3,
+                              knot_axis="knot", knot_shards=3)(
+        *_port_args(hkd))
+    _assert_same_solve(to_numpy(got), to_numpy(want))
 
 
 def test_defaults_are_jax_defaults():

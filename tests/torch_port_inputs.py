@@ -1,6 +1,21 @@
 """Seeded numpy operands shared by the port's kernel tests (numpy only,
-so the GPU tests can run where jax is not installed)."""
+so the GPU tests can run where jax is not installed), and a fixture that
+runs a test module's torch work on one intra-op thread."""
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the module, restored after it: the
+    suite runs several workers on the same cores, and torch's default of a
+    thread per core then oversubscribes them (batched 36 x 36 solves ran
+    ~100x slower than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_inputs(rng, Bsz, N, xs, us, w_idx, luu_shift, fail=()):
