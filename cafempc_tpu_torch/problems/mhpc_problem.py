@@ -22,15 +22,18 @@ MHPCReset.*, MHPCFootStep.h):
 
 The plan builder and the settings loaders are host-side numpy, copied
 here because the JAX module imports jax at its top.  The problem functions
-take the whole batch: states [B, n, 36] against plan slices [n, ...].  The
-solver runs them per segment (`make_mhpc_fns_segmented`): the WB functions
-on the WB steps only, the SRB functions on the tail only.  In the WB
+take the whole batch: states [B, n, 36] against plan slices [n, ...].
+`make_mhpc_fns(cfg, model)` is the JAX package's default, the joint mode:
+one set of functions over every step, each evaluating both models and
+selecting on `model_id`.  `make_mhpc_fns_segmented` runs the WB functions
+on the WB steps only and the SRB functions on the tail only.  In the WB
 segment there is one implementation, the batched form of the JAX lane
 overrides on `models/wb_lane.py` (the JAX package's per-knot WB functions
 compute the same values); the JAX lane folding and lane chunking are TPU
-mechanics and are not ported.  Not ported either: the joint where-select
-mode, the AD partials (CAFEMPC_WB_AD_PARTIALS=1) and the closed-form FK
-bundle (CAFEMPC_WB_CF=1); each raises NotImplementedError.
+mechanics and are not ported.  The JAX package's switches are read where
+the functions are made: CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and
+reset partials by forward-mode AD, CAFEMPC_WB_CF=1 the WB segment's
+analytic partials from the closed-form FK bundle.
 """
 import dataclasses
 import json
@@ -41,7 +44,7 @@ import types
 import numpy as np
 import torch
 
-from cafempc_tpu_torch.models import srb, wb_lane, wbm
+from cafempc_tpu_torch.models import rbda, srb, wb_lane, wbm
 from cafempc_tpu_torch.reference.quad_reference import (
     QuadReference, srb_state_ref_at, wb_state_ref_at)
 from cafempc_tpu_torch.solver.hsddp import ProblemFns, SegmentedFns
@@ -556,10 +559,22 @@ def _gn(J, w, r):
     return g, (Jf * wf[..., None]).mT @ Jf
 
 
-def _make_wb_fns(cfg: MHPCConfig, lm):
+def _ad_dyn_partials(dyn):
+    """A, B, C, D as the forward-mode Jacobian of dyn (xnext and y) in
+    (x, u), each knot on its own."""
+    def dyn_partials(X, U, sd):
+        Jx, Jy = rbda.batched_jacobian(
+            lambda z: dyn(z[..., :XS], z[..., XS:], sd), torch.cat([X, U], -1))
+        return Jx[..., :XS], Jx[..., XS:], Jy[..., :XS], Jy[..., XS:]
+    return dyn_partials
+
+
+def _make_wb_fns(cfg: MHPCConfig, lm, use_cf=False, ad=False):
     """The WB segment's batched functions on the whole-body model `lm`
     (the JAX lane overrides, mhpc_lane.py:200-498, with the batch
-    leading)."""
+    leading).  use_cf: the analytic partials from the closed-form FK
+    bundle; ad: the dynamics and reset partials by forward-mode AD
+    (mhpc_problem.py:549-552, 563-565)."""
     bg = float(cfg.BG_alpha)
     consts = _Consts(
         q=cfg.wb_q, r=cfg.wb_r, qf=cfg.wb_qf, reg=cfg.qfoot_reg,
@@ -589,7 +604,7 @@ def _make_wb_fns(cfg: MHPCConfig, lm):
 
     def dyn_partials(X, U, sd):
         dt, c = _bcast(X, sd.dt, sd.contact)
-        return wb_lane.wb_dyn_partials_lane(lm, X, U, dt, c, bg)
+        return wb_lane.wb_dyn_partials_lane(lm, X, U, dt, c, bg, use_cf)
 
     def reset_masks(X, sd):
         c, cn, ms = _bcast(X, sd.contact, sd.contact_next, sd.model_switch)
@@ -612,11 +627,18 @@ def _make_wb_fns(cfg: MHPCConfig, lm):
         k = consts(X)
         imp_mask, has_imp, switch = reset_masks(X, sd)
         q, v = X[..., :NQ], X[..., NQ:]
-        dvq, dvv = wb_lane.impulse_dynamics_partials_lane(lm, q, v, imp_mask)
+        dvq, dvv = wb_lane.impulse_dynamics_partials_lane(
+            lm, q, v, imp_mask, use_cf=use_cf)
         top = k.eye[:NQ].expand(X.shape[:-1] + (NQ, XS))
         P = torch.cat([top, torch.cat([dvq, dvv], -1)], -2)
         P = torch.where(has_imp[..., None, None], P, k.eye)
         return torch.where(switch[..., None, None], k.bm[:, None] * P, P)
+
+    if ad:
+        dyn_partials = _ad_dyn_partials(dyn)
+
+        def reset_partial(X, sd):
+            return rbda.batched_jacobian(lambda x: reset(x, sd), X)
 
     def run_cost(X, U, Y, sd):
         """Tracking + WBFootPlaceReg + SwingFootPos + SwingFootVel
@@ -745,10 +767,10 @@ def _make_srb_fns(cfg: MHPCConfig):
         """Forward-Euler SRB step at the body dims (SRBM.h:43-49); the dead
         dims are zero."""
         x12, dt, pfr, rc = body(X, sd)
-        xn = X.new_zeros(X.shape)
-        xn[..., body_dims(X)] = x12 + dt[..., None] * \
-            srb.dynamics_continuous(x12, U, pfr, rc)
-        return xn, X.new_zeros(X.shape[:-1] + (YS,))
+        xn = x12 + dt[..., None] * srb.dynamics_continuous(x12, U, pfr, rc)
+        z = X.new_zeros(X.shape[:-1] + (12,))
+        return (torch.cat([xn[..., :6], z, xn[..., 6:], z], -1),
+                X.new_zeros(X.shape[:-1] + (YS,)))
 
     def dyn_partials(X, U, sd):
         """SRB Jacobians on the 12-dim core, embedded at the body dims
@@ -820,28 +842,73 @@ def _make_srb_fns(cfg: MHPCConfig):
         term_con_partials=term_con_partials)
 
 
-def make_mhpc_fns(cfg: MHPCConfig, model, mode) -> ProblemFns:
-    """Problem functions of one model of the cascade for the segmented
-    solver: mode="wb" on the whole-body model `model` (`wbm.load_model`,
-    at the solve's dtype and device), mode="srb" for the tail (`model` is
-    not used).  The JAX package's joint where-select mode, its AD partials
-    (CAFEMPC_WB_AD_PARTIALS=1) and its closed-form FK bundle
-    (CAFEMPC_WB_CF=1) are not ported."""
+def _make_joint_fns(wbf, srbf):
+    """The JAX joint mode (mhpc_problem.py:463-864) from the two models'
+    functions: every callable evaluates both and selects on model_id, with
+    torch.where, as jnp.where does, so that a non-finite value of the
+    branch not taken (the WB KKT on a projected SRB state, in f32) stays
+    out; the GRF output is the WB one on WB knots and zero elsewhere, the
+    dynamics partials the forward-mode Jacobian of the selected dynamics,
+    the reset and the terminal constraint the WB ones on every knot."""
+    def is_wb(X, pd):
+        return _bcast(X, pd.model_id)[0] == 0
+
+    def select(wb, a, b):
+        if isinstance(a, tuple):
+            return tuple(select(wb, x, y) for x, y in zip(a, b))
+        return torch.where(wb.reshape(wb.shape + (1,) * (a.dim() - wb.dim())),
+                           a, b)
+
+    def dyn(X, U, sd):
+        wb = is_wb(X, sd)
+        xn_wb, grf = wbf.dyn(X, U, sd)
+        return (select(wb, xn_wb, srbf.dyn(X, U, sd)[0]),
+                select(wb, grf, torch.zeros_like(grf)))
+
+    def both(name):
+        def f(X, *args):
+            return select(is_wb(X, args[-1]), getattr(wbf, name)(X, *args),
+                          getattr(srbf, name)(X, *args))
+        return f
+
+    return ProblemFns(
+        dyn=dyn, dyn_partials=_ad_dyn_partials(dyn), reset=wbf.reset,
+        reset_partial=wbf.reset_partial, **{n: both(n) for n in (
+            "run_cost", "run_cost_partials", "term_cost",
+            "term_cost_partials", "path_con", "path_con_partials")},
+        term_con=wbf.term_con, term_con_partials=wbf.term_con_partials)
+
+
+MODES = ("joint", "wb", "srb")
+
+
+def make_mhpc_fns(cfg: MHPCConfig, model, mode="joint") -> ProblemFns:
+    """Problem functions of the cascade on the whole-body model `model`
+    (`wbm.load_model`, at the solve's dtype and device; not used by
+    mode="srb").
+
+    mode="joint" (the JAX package's default): every callable handles both
+    models through a model_id select, evaluating both on every knot.
+    mode="wb" / "srb": one model's functions for the segmented solver
+    (`make_mhpc_fns_segmented`).  The environment is read here:
+    CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and reset partials by
+    forward-mode AD (joint mode always takes the dynamics partials so);
+    CAFEMPC_WB_CF=1 makes mode "wb"'s analytic partials from the
+    closed-form FK bundle (the JAX joint mode and AD partials do not reach
+    the lane partials, so it changes nothing there)."""
+    if mode not in MODES:
+        raise ValueError(f"make_mhpc_fns: unknown mode {mode!r} (one of "
+                         f"{', '.join(MODES)})")
     cfg = _default_weights(dataclasses.replace(cfg))
     if mode == "srb":
         return _make_srb_fns(cfg)
-    if mode != "wb":
-        raise NotImplementedError(
-            f"make_mhpc_fns: mode {mode!r} is not ported (ported: 'wb', "
-            "'srb' for the segmented solver)")
-    for var in ("CAFEMPC_WB_AD_PARTIALS", "CAFEMPC_WB_CF"):
-        if os.environ.get(var, "0") == "1":
-            raise NotImplementedError(f"make_mhpc_fns: {var}=1 is not "
-                                      "ported")
     if model is None:
-        raise ValueError("make_mhpc_fns: mode 'wb' needs the whole-body "
+        raise ValueError(f"make_mhpc_fns: mode {mode!r} needs the whole-body "
                          "model (wbm.load_model(urdf_path, ...))")
-    return _make_wb_fns(cfg, model)
+    ad = os.environ.get("CAFEMPC_WB_AD_PARTIALS", "0") == "1"
+    if mode == "wb":
+        return _make_wb_fns(cfg, model, use_cf=wb_lane.use_cf_env(), ad=ad)
+    return _make_joint_fns(_make_wb_fns(cfg, model, ad=ad), _make_srb_fns(cfg))
 
 
 def make_mhpc_fns_segmented(cfg: MHPCConfig, model) -> SegmentedFns:

@@ -80,11 +80,14 @@ class MHPCRuntime:
     def __init__(self, quad_ref: QuadReference, cfg: mp.MHPCConfig,
                  opts: SolverOptions, model=None, urdf_path=None,
                  device="cuda", dtype=torch.float64, n_cmd_steps=8,
-                 max_resets=8, foot_handoff=False, endpoint=None,
-                 debug_intermtraj=False):
+                 segmented=None, max_resets=8, foot_handoff=False,
+                 endpoint=None, debug_intermtraj=False):
         """model: the whole-body model (`wbm.load_model`) at `device` and
-        `dtype`, or urdf_path to load it from; max_resets: reset steps
-        gathered per segment; foot_handoff: freeze the solved WB foot XY
+        `dtype`, or urdf_path to load it from; segmented: solve with the
+        two-segment functions (None: whenever the plan has an SRB tail) or,
+        False, with the joint-mode functions (`mp.make_mhpc_fns`);
+        max_resets: reset steps gathered per segment (the joint functions
+        are one segment); foot_handoff: freeze the solved WB foot XY
         into the SRB tail for feet in stance at the handoff
         (MHPCFootStep.h:26-57, opt-in, see
         mhpc_problem.apply_transition_foot_handoff); endpoint: a
@@ -105,10 +108,14 @@ class MHPCRuntime:
         self.dtype = dtype
         self.n_cmd_steps = n_cmd_steps
         self.foot_handoff = foot_handoff
-        # without an SRB tail every step is a WB step, and the WB functions
-        # are the JAX joint mode's on such a plan
-        fns = (mp.make_mhpc_fns_segmented(cfg, model) if cfg.plan_dur_srb > 0
-               else mp.make_mhpc_fns(cfg, model, "wb"))
+        if segmented or (segmented is None and cfg.plan_dur_srb > 0):
+            fns = mp.make_mhpc_fns_segmented(cfg, model)
+        elif segmented is None:
+            # no SRB tail: the WB functions compute the joint functions'
+            # values (the JAX runtime takes the joint ones)
+            fns = mp.make_mhpc_fns(cfg, model, "wb")
+        else:
+            fns = mp.make_mhpc_fns(cfg, model)
         kw = dict(fused_riccati=True, parallel_line_search=False,
                   max_resets=max_resets, trim_output=False, iter_callback=(
             self._intermtraj_callback if debug_intermtraj else None))

@@ -163,6 +163,31 @@ Phases (one line of output each, unless noted):
         the same keywords with parallel_riccati and no mesh: equal success
         flags and iterations, cost within COST_RTOL, ms per solve;
      e. 3b's solve through `scenario_mesh()`: bit for bit 3b's;
+ 12. the JAX package's MHPC options and the last ported modules, each
+     environment switch set only inside its sub-phase (unset before and
+     after, else the script fails):
+     a. phase 6's WB linearization (256 x 25 knots) and impulse partials
+        (256 x 4) with CAFEMPC_WB_CF=1 (the closed-form FK bundle) against
+        the default jvp path: f64 to CF_TOL normalized, the f32 CF result
+        against the f64 one (A, B to 1e-3); then both paths in f32 in turns
+        (default, CF, CF, default): ms per call, launches, device busy ms,
+        idle share and peak memory;
+     b. 7a's mhpc-B256-f32 segmented solve and keywords with
+        CAFEMPC_WB_CF=1: one solve profiled on the device, success flags
+        and iteration counts equal to 7a's, cost within COST_RTOL, sweep
+        and linroll launches;
+     c. the same with CAFEMPC_WB_AD_PARTIALS=1 (the WB dynamics and reset
+        partials by forward-mode AD), with its peak memory;
+     d. the same solve with the joint-mode functions (`make_mhpc_fns(cfg,
+        model)`, every knot evaluating both models): a warm-up keeping the
+        first sweep and linroll operands, one profiled solve against 7a's,
+        then both kernels against their twins on those operands (f64 to
+        1e-10, ok flags equal), their ms, twin ms and bound;
+     e. MHPCRuntime(segmented=False) on 7b's states: commands against 7b's
+        to RT_RTOL, each step's build, solve and fetch ms;
+     f. the HKD-MPC demo's closed loop (`examples/hkd_mpc_demo.py` without
+        the plots) on a pace generated on the card, 10 MPC steps: height
+        in (0.05, 0.6) m, finite costs, ms per update;
 each phase's wall seconds (a `[t]` line after it), then the card's name
 and power limit, one JSON line of the kernels (`launches` each one's
 launches in phase 3's profiled solve, `ms` its device time per launch by
@@ -170,12 +195,14 @@ torch.profiler, `event_ms` its CUDA-event time per wrapper call, host work
 included, and its bound: bytes over the HBM rate or operations over the
 f32 peak, whichever is larger; for the sweep and linroll the same figures
 at phase 7a's shape under `mhpc`, launches per profiled solve, under
-`sweep_chain` with 11a's launches in its timed chunk (the same shape), and
-at phase 9b's under `barrel_roll`, f64, launches per solve, bound by the
-f64 peak) and the final `{"ok": true, "device": ...}` line.  Exits
-non-zero, printing no result, without a CUDA device or when any phase
+`sweep_chain` with 11a's launches in its timed chunk (the same shape),
+under `mhpc_joint` at 12d's (the same shape, launches in its profiled
+solve), and at phase 9b's under `barrel_roll`, f64, launches per solve,
+bound by the f64 peak) and the final `{"ok": true, "device": ...}` line.
+Exits non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -196,6 +223,7 @@ from cafempc_tpu_torch.comms.udpm import (DEFAULT_ADDR, LCMEndpoint,
                                           UDPMulticast, frame)
 from cafempc_tpu_torch.examples import barrel_roll_demo as ex_br
 from cafempc_tpu_torch.examples import br_reference_demo as ex_brref
+from cafempc_tpu_torch.examples import hkd_mpc_demo as ex_demo
 from cafempc_tpu_torch.examples import loco_to_demo as ex_loco
 from cafempc_tpu_torch.examples import two_process_hkd_mpc as ex_hkd
 from cafempc_tpu_torch.examples import two_process_mhpc as ex_mhpc
@@ -1286,6 +1314,7 @@ def phase_mhpc(label, models):
     figs = path_kernel_figures(seen, label)
     figs["launches"] = per_solve
     figs["solve"] = (cost, success)
+    figs["info"] = res.info
     return figs
 
 
@@ -1293,14 +1322,15 @@ def phase_mhpc_runtime(label, model):
     """Phase 7b: MHPCRuntime at B=1 in f64, initialize + N_RT_UPDATES
     updates, each fed the solver's own predicted state one MPC period
     ahead; the ms of each step split into host plan build, solve and
-    fetch."""
+    fetch.  Returns each step's (state, command tape)."""
     qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
     qr.initialize(0.75)
     rt = MHPCRuntime(qr, mp.MHPCConfig(), SolverOptions(), model=model,
                      device=DEVICE, dtype=torch.float64)
-    x, lines = wb_state_ref_at(qr, 0.0), []
+    x, lines, steps = wb_state_ref_at(qr, 0.0), [], []
     for i in range(N_RT_UPDATES + 1):
         tape = rt.initialize(x) if i == 0 else rt.update(x)
+        steps.append((x, tape))
         r, t = rt.result, rt.timing
         ok = bool(r["success"]) and np.isfinite(r["cost"])
         lines.append(f"{'init' if i == 0 else f'update {i}'} build "
@@ -1316,6 +1346,7 @@ def phase_mhpc_runtime(label, model):
         x = r["Xbar"][j]
     print(f"[7b] MHPC runtime B=1 f64 against the {rt.cfg.dt_mpc * 1e3:.0f} "
           "ms MPC period: " + "; ".join(lines) + f" [{label}]", flush=True)
+    return steps
 
 
 def phase_cascade500(label, model):
@@ -2608,6 +2639,296 @@ def phase_sweep(label, models, b1, unfused):
     return launches
 
 
+# Phase 12: the JAX package's MHPC options on the card, each switch set
+# only inside its sub-phase: the closed-form FK bundle (CAFEMPC_WB_CF=1),
+# the AD partials (CAFEMPC_WB_AD_PARTIALS=1), the joint mode and
+# MHPCRuntime(segmented=False); then the HKD-MPC demo's closed loop
+CF_ENV, AD_ENV = "CAFEMPC_WB_CF", "CAFEMPC_WB_AD_PARTIALS"
+CF_TOL = 1e-9           # 12a: CF against the jvp path, f64, normalized
+N_CF_TIMED = 3          # 12a: calls a turn
+RT_RTOL = 1e-7          # 12e: joint against segmented runtime commands
+N_DEMO_STEPS = 10       # 12f: MPC steps of the demo's closed loop
+DEMO_GAIT_S = 2.0       # 12f: s of generated pace
+
+
+@contextlib.contextmanager
+def env_on(name):
+    """name=1 inside the block only: fails where it is set before or
+    after."""
+    if name in os.environ:
+        fail(f"{name} is set before its sub-phase")
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        del os.environ[name]
+    if name in os.environ:
+        fail(f"{name} is still set after its sub-phase")
+
+
+def cf_turn(models, wb, imp, cf):
+    """One turn of 12a at f32 with CAFEMPC_WB_CF=cf: median CUDA-event ms
+    of the WB linearization and of the impulse partials, one WB call's
+    device profile (device only) and the turn's peak memory in GiB."""
+    f32 = torch.float32
+    with env_on(CF_ENV) if cf else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wb_ms = median_event_ms(lambda: wb_partials(models[f32], wb[f32]),
+                                N_CF_TIMED)
+        imp_ms = median_event_ms(
+            lambda: impulse_partials(models[f32], imp[f32]), N_CF_TIMED)
+        prof = profile_device(lambda: wb_partials(models[f32], wb[f32]),
+                              host=False)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return wb_ms, imp_ms, prof, peak
+
+
+def phase_cf_bundle(label):
+    """12a: the WB linearization on WB_KNOTS knots and the impulse
+    partials on RESET_KNOTS (phase 6's knots) with the closed-form bundle
+    against the default jvp path: f64 on the card to CF_TOL, the f32 CF
+    result against the f64 one (A, B to F32_TOL); then both paths timed in
+    turns (default, CF, CF, default)."""
+    f32, f64 = torch.float32, torch.float64
+    models = lane_models()
+    wb_np, imp_np = wb_knot_data(WB_KNOTS, SEED + 6), \
+        wb_knot_data(RESET_KNOTS, SEED + 7)
+    wb = {dt: on(wb_np, DEVICE, dt) for dt in (f32, f64)}
+    imp = {dt: on(imp_np, DEVICE, dt) for dt in (f32, f64)}
+    jvp64 = (wb_partials(models[f64], wb[f64])
+             + impulse_partials(models[f64], imp[f64]))
+    with env_on(CF_ENV):
+        cf64 = (wb_partials(models[f64], wb[f64])
+                + impulse_partials(models[f64], imp[f64]))
+        cf32 = wb_partials(models[f32], wb[f32])
+    err = rel_errors(cf64, jvp64)
+    err32 = rel_errors(cf32, cf64[:4])
+    finite = all(bool(torch.isfinite(o).all()) for o in cf32)
+    print(f"[12a] CAFEMPC_WB_CF=1 against the jvp path on the card, f64, "
+          f"normalized: A,B,C,D " + ", ".join(f"{e:.3e}" for e in err[:4])
+          + "; impulse dvq, dvv " + ", ".join(f"{e:.3e}" for e in err[4:])
+          + f" (tol {CF_TOL:g}); CF f32 against CF f64 on {WB_KNOTS} knots: "
+          + ", ".join(f"{e:.3e}" for e in err32)
+          + f", f32 finite {finite} (A, B tol {F32_TOL:g}) [{label}]",
+          flush=True)
+    del jvp64, cf64, cf32
+    if not max(err) <= CF_TOL:
+        fail(f"the CF partials disagree with the jvp path: {err}")
+    if not (finite and max(err32[:2]) <= F32_TOL):
+        fail(f"the f32 CF partials are not finite or too far from f64: "
+             f"{err32}")
+    turns = [(cf, cf_turn(models, wb, imp, cf))
+             for cf in (False, True, True, False)]
+    for cf, (wb_ms, imp_ms, prof, peak) in turns:
+        print(f"[12a] turn CF={int(cf)}, f32: wb_dyn_partials_lane on "
+              f"{WB_KNOTS} knots median {wb_ms:.2f} ms over {N_CF_TIMED} "
+              f"calls, impulse partials on {RESET_KNOTS} knots "
+              f"{imp_ms:.2f} ms; "
+              + profile_text(prof, "one WB call (device only)")
+              + f"; peak device memory {peak:.2f} GiB [{label}]",
+              flush=True)
+
+
+def profiled_solve(solve, args, profile=True):
+    """One solve, with the launch counts set to 0 just before it and read
+    just after, under the device-only profiler unless profile=False:
+    (result, cost, success, ms of the solve and the fetch of its cost and
+    success on the host clock, counts, profile or None)."""
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        out["res"] = solve(*args)
+        out["cost"] = out["res"].cost.cpu()
+        out["success"] = out["res"].success.cpu()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    reset_counts()
+    prof = profile_device(run, host=False) if profile else run()
+    return (out["res"], out["cost"], out["success"], out["ms"],
+            read_counts(), prof)
+
+
+def against_7a(tag, what, res, cost, success, mhpc):
+    """Fails unless the solve has 7a's success flags and iteration counts
+    per scenario and its cost within COST_RTOL; returns the text."""
+    dc, text = plain_solve_text(res, cost, success, *mhpc["solve"])
+    same_it = all(torch.equal(getattr(res.info, f).cpu(),
+                              getattr(mhpc["info"], f).cpu())
+                  for f in ("iters", "ls_iters", "reg_iters"))
+    if not (torch.equal(success, mhpc["solve"][1]) and same_it
+            and dc <= COST_RTOL):
+        fail(f"{tag}: the {what} solve disagrees with phase 7a's (success "
+             f"flags, iteration counts equal {same_it}, cost {dc:.3e})")
+    return f"{text}, iteration counts equal per scenario {same_it} (7a)"
+
+
+def option_solve(models, env, profile):
+    """12b / 12c: 7a's mhpc-B256-f32 segmented solve and keywords with
+    `env` set to 1 while the functions are made and the solve runs: one
+    solve (profiled_solve) and the peak memory."""
+    f32 = torch.float32
+    cfg, args, _ = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
+    with env_on(env):
+        solve = make_batched_solver(
+            mp.make_mhpc_fns_segmented(cfg, models[f32]), MHPC_OPTS,
+            max_resets=MAX_RESETS, **MHPC_KW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, cost, success, ms, counts, prof = profiled_solve(solve, args,
+                                                              profile)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res, cost, success, ms, counts, prof, peak
+
+
+def phase_mhpc_options(label, models, mhpc):
+    """12b-12c: 7a's solve with CAFEMPC_WB_CF=1 (profiled on the device),
+    then with CAFEMPC_WB_AD_PARTIALS=1."""
+    for tag, env, profile in (("12b", CF_ENV, True), ("12c", AD_ENV, False)):
+        what = f"{env}=1 segmented"
+        res, cost, success, ms, counts, prof, peak = option_solve(
+            models, env, profile)
+        print(f"[{tag}] mhpc B={MHPC_B} f32 with {env}=1, 7a's keywords: "
+              f"{ms:.1f} ms for one solve"
+              + (" (device-only profiler on)" if profile else "") + "; "
+              + against_7a(tag, what, res, cost, success, mhpc)
+              + f"; kernel launches {counts}; "
+              + (profile_text(prof, "the solve (device only)") + "; "
+                 if profile else "")
+              + f"peak device memory {peak:.2f} GiB [{label}]", flush=True)
+        missed = [k for k in PATH_KERNELS if counts[k] == 0]
+        if missed:
+            fail(f"{tag}: kernels of the path were never launched: {missed}")
+
+
+def phase_mhpc_joint(label, models, mhpc):
+    """12d: the mhpc-B256-f32 solve with the joint-mode functions
+    (`make_mhpc_fns(cfg, model)`) and 7a's keywords: a warm-up keeping the
+    first sweep and linroll operands, one solve profiled on the device
+    with the launch counts set to 0 just before and read just after,
+    against 7a's; then the two kernels against their twins on the captured
+    operands.  Returns the kernels' figures at this path."""
+    f32 = torch.float32
+    cfg, args, _ = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
+    fns = mp.make_mhpc_fns(cfg, models[f32])
+    kw = dict(MHPC_KW, max_resets=MAX_RESETS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solve_c, seen = capturing_solver(fns, **kw)
+    solve_c(*args).cost.cpu()
+    warm_s = time.perf_counter() - t0
+    solve = make_batched_solver(fns, MHPC_OPTS, **kw)
+    res, cost, success, ms, counts, prof = profiled_solve(solve, args)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[12d] mhpc joint mode (make_mhpc_fns), B={MHPC_B} f32, 7a's "
+          f"keywords: {ms:.1f} ms for one solve (device-only profiler on; "
+          f"warm-up {warm_s:.1f} s); "
+          + against_7a("12d", "joint", res, cost, success, mhpc)
+          + f"; kernel launches {counts}; "
+          + profile_text(prof, "the solve (device only)")
+          + f"; peak device memory {peak:.2f} GiB [{label}]", flush=True)
+    missed = [k for k in PATH_KERNELS if counts[k] == 0]
+    if missed:
+        fail(f"kernels of the joint mhpc path were never launched: {missed}")
+    figs = path_kernel_figures(seen, label, tag="12d", what="mhpc joint")
+    figs["launches"] = counts
+    return figs
+
+
+def tape_rel_errors(got, want):
+    """Max |got - want| / max |want| of each command-tape field."""
+    out = {}
+    for f in ("torque", "pos", "eul", "qJ", "vWorld", "eulrate", "qJd",
+              "GRF", "feedback", "Qu", "Quu", "Qux"):
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        out[f] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    return out
+
+
+def phase_runtime_joint(label, model, steps):
+    """12e: MHPCRuntime(segmented=False) at 7b's configuration, B=1 f64,
+    initialize + N_RT_UPDATES updates on 7b's states: commands against
+    7b's to RT_RTOL; each step's build, solve and fetch ms."""
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
+    qr.initialize(0.75)
+    rt = MHPCRuntime(qr, mp.MHPCConfig(), SolverOptions(), model=model,
+                     device=DEVICE, dtype=torch.float64, segmented=False)
+    lines, worst = [], 0.0
+    reset_counts()
+    for i, (x, want) in enumerate(steps):
+        tape = rt.initialize(x) if i == 0 else rt.update(x)
+        t = rt.timing
+        err = max(tape_rel_errors(tape, want).values())
+        worst = max(worst, err)
+        lines.append(f"{'init' if i == 0 else f'update {i}'} build "
+                     f"{t['build_ms']:.1f} + solve {t['solve_ms']:.1f} + "
+                     f"fetch {t['fetch_ms']:.1f} ms, success "
+                     f"{bool(rt.result['success'])}, command rel err "
+                     f"{err:.3e}")
+    counts = read_counts()
+    print(f"[12e] MHPC runtime segmented=False (joint functions), B=1 f64, "
+          f"on 7b's states: " + "; ".join(lines) + f"; kernel launches "
+          f"{counts} (tol {RT_RTOL:g} against 7b's commands) [{label}]",
+          flush=True)
+    if not worst <= RT_RTOL:
+        fail(f"the joint runtime's commands differ from 7b's: {worst:.3e}")
+    if not all(counts[k] for k in PATH_KERNELS):
+        fail(f"the joint runtime launched no sweep or linroll: {counts}")
+
+
+def phase_demo(label):
+    """12f: the HKD-MPC demo's closed loop on the card
+    (`examples/hkd_mpc_demo.py` without its plots): a pace generated on
+    the synthetic quadruped, HKDMPCRuntime f64, N_DEMO_STEPS MPC steps
+    against the HKD plant; the height must stay in the demo's range and
+    every cost be finite."""
+    cfg = hp.HKDConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        qr = QuadReference(ex_demo.reference("pace", None, tmp, DEVICE,
+                                             DEMO_GAIT_S))
+        gen_s = time.perf_counter() - t0
+    qr.initialize(cfg.plan_duration)
+    rt = HKDMPCRuntime(qr, cfg, ex_demo.OPTS, device=DEVICE)
+    steps = []
+    reset_counts()
+    X, _ = ex_demo.closed_loop(
+        rt, ex_demo.initial_state(qr, DEVICE), N_DEMO_STEPS,
+        lambda i, x, tape: steps.append((float(tape.solve_info["cost"][-1]),
+                                         dict(rt.timing))))
+    counts = read_counts()
+    z = X[:, 5]
+    ms = [t["build_ms"] + t["solve_ms"] + t["fetch_ms"] for _, t in steps]
+    ok = bool(np.isfinite([c for c, _ in steps]).all()) and bool(
+        ((z > ex_demo.Z_RANGE[0]) & (z < ex_demo.Z_RANGE[1])).all())
+    print(f"[12f] HKD-MPC demo closed loop on the card: pace generated in "
+          f"{gen_s:.1f} s, {N_DEMO_STEPS} MPC steps, z "
+          f"{z.min():.3f}-{z.max():.3f} m (range {ex_demo.Z_RANGE}), cost "
+          f"first/last {steps[0][0]:.2f}/{steps[-1][0]:.2f}, ms per update "
+          f"(build + solve + fetch) median {statistics.median(ms):.1f}, max "
+          f"{max(ms):.1f}; kernel launches {counts} [{label}]", flush=True)
+    if not ok:
+        fail("the demo's closed loop left the height range or a cost is not "
+             "finite")
+    if not all(counts[k] for k in PATH_KERNELS):
+        fail(f"the demo's runtime launched no sweep or linroll: {counts}")
+
+
+def phase_options(label, models, mhpc):
+    """Phase 12 (12a-12f); returns 12d's kernel figures."""
+    for env in (CF_ENV, AD_ENV):
+        if env in os.environ:
+            fail(f"{env} is set before phase 12")
+    phase_cf_bundle(label)
+    phase_mhpc_options(label, models, mhpc)
+    joint = phase_mhpc_joint(label, models, mhpc)
+    phase_runtime_joint(label, models[torch.float64], mhpc["runtime"])
+    phase_demo(label)
+    return joint
+
+
 def timed_phase(n, fn, label, *args):
     """fn(label, *args), printing its wall seconds as phase n's."""
     t0 = time.perf_counter()
@@ -2628,9 +2949,10 @@ def phase_kernels_all(label):
 
 
 def phase_mhpc_all(label, models):
-    """Phase 7 (7a-7c); returns 7a's figures."""
+    """Phase 7 (7a-7c); returns 7a's figures, 7b's steps under
+    "runtime"."""
     mhpc = phase_mhpc(label, models)
-    phase_mhpc_runtime(label, models[torch.float64])
+    mhpc["runtime"] = phase_mhpc_runtime(label, models[torch.float64])
     phase_cascade500(label, models[torch.float32])
     return mhpc
 
@@ -2673,6 +2995,7 @@ def main():
     b1 = timed_phase(10, phase_plain_stages, label, unfused, models, mhpc,
                      trajopt)
     chain = timed_phase(11, phase_sweep, label, models, b1, unfused)
+    joint = timed_phase(12, phase_options, label, models, mhpc)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line
@@ -2684,8 +3007,8 @@ def main():
     def on_paths(name):
         """The kernel on phase 7a's path at the mhpc solve's shape (f32),
         on 11a's sweep chain at the same shape (launches in its timed
-        chunk of 2 x 256 solves), and on phase 9b's at the barrel roll's
-        (f64)."""
+        chunk of 2 x 256 solves), on 12d's joint-mode solve at the same
+        shape, and on phase 9b's at the barrel roll's (f64)."""
         if name not in PATH_KERNELS:
             return {}
         return {path: {
@@ -2696,6 +3019,7 @@ def main():
             "bound_ms": figs[f"{name}_bound"][0],
             "bound_by": figs[f"{name}_bound"][1], "library_ms": None}
             for path, figs in (("mhpc", mhpc), ("sweep_chain", mhpc),
+                               ("mhpc_joint", joint),
                                ("barrel_roll", trajopt))}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

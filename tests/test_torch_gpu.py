@@ -2,9 +2,10 @@
 HKD solve through the kernels against the same solve through the twins;
 small HKD solves under the JAX package's default configuration and the
 solver's other plain-PyTorch stages on the card against the CPU;
-the whole-body and SRB model layer on the card against the CPU; the MHPC
-cascade's WB functions on the card against the CPU, a small MHPC solve
-through the sweep and linroll kernels against the same solve through
+the whole-body and SRB model layer (the closed-form-bundle partials
+included) on the card against the CPU; the MHPC cascade's WB functions on
+the card against the CPU, small MHPC solves (segmented and joint mode)
+through the sweep and linroll kernels against the same solves through
 their twins, and a small HKD runtime served over an in-memory transport
 launching the sweep and linroll kernels on every solve.
 
@@ -552,6 +553,50 @@ def test_mhpc_fns_on_card_match_cpu(cuda, robot, name, knot):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.float64
         assert _rel_err(g.cpu(), w) < 1e-10, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", MODEL_DTYPES)
+def test_cf_partials_on_card_match_cpu(cuda, robot, dtype, tol):
+    """The closed-form-bundle partials (CAFEMPC_WB_CF=1's path: the WB
+    linearization and the impulse partials) of 16 knots on the card
+    against the same knots in f64 on the CPU."""
+    def run(device, dt):
+        m = wb_lane.load_lane_model(robot, device, dt)
+        d = _on(_wb_knots(16), device, dt)
+        return (*wb_lane.wb_dyn_partials_lane(m, d["x"], d["u"], d["dt"],
+                                              d["c"], 10.0, use_cf=True),
+                *wb_lane.impulse_dynamics_partials_lane(
+                    m, d["x"][:, :18], d["x"][:, 18:], d["c"], use_cf=True))
+
+    for g, w in zip(run(cuda, dtype), run("cpu", torch.float64)):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(g.cpu().double(), w) < tol
+
+
+@pytest.mark.gpu
+def test_joint_solve_through_kernels_matches_twins(cuda, robot):
+    """A B=8 f64 solve of the small cascaded plan with the joint-mode
+    functions (`make_mhpc_fns(cfg, model)`): through the sweep and linroll
+    kernels against their twins, same success flags and iteration counts,
+    trajectories to 1e-8."""
+    cfg, host, _ = _mhpc_inputs(8)
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(host, cuda, torch.float64)
+    args = (plan, broadcast_batch(pen, 8), x0, broadcast_batch(Xbar0, 8),
+            broadcast_batch(Ubar0, 8))
+    opts = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
+    kw = dict(fused_riccati=True, parallel_line_search=False,
+              max_resets=16, reg_floor=1e-3)
+    fns = mp.make_mhpc_fns(cfg, wbm.load_model(robot, cuda, torch.float64))
+    before = (sw.sweep.launches, lr.linroll.launches)
+    got = make_solver(fns, opts, **kw)(*args)
+    torch.cuda.synchronize()
+    after = (sw.sweep.launches, lr.linroll.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    want = make_solver(fns, opts, plain_ops=True, **kw)(*args)
+    assert (sw.sweep.launches, lr.linroll.launches) == after
+    _same_solve(got, want)
 
 
 @pytest.mark.gpu

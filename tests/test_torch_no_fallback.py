@@ -241,15 +241,11 @@ MHPC_PLAN = dict(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
                  wb_block=16)
 
 
-@pytest.mark.parametrize("mode,env", [("joint", None), ("wb", (
-    "CAFEMPC_WB_AD_PARTIALS", "1")), ("wb", ("CAFEMPC_WB_CF", "1"))])
-def test_unported_mhpc_modes_raise(mhpc_model, monkeypatch, mode, env):
-    """The joint where-select mode, the AD partials and the closed-form FK
-    bundle of the JAX package are not ported: asking for them raises."""
-    if env is not None:
-        monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError):
-        mp.make_mhpc_fns(mp.MHPCConfig(**MHPC_PLAN), mhpc_model, mode)
+def test_unknown_mhpc_mode_raises(mhpc_model):
+    """make_mhpc_fns takes the JAX package's modes (joint, wb, srb) and
+    refuses any other, where the JAX function would build the joint mode."""
+    with pytest.raises(ValueError, match="unknown mode"):
+        mp.make_mhpc_fns(mp.MHPCConfig(**MHPC_PLAN), mhpc_model, "lane")
 
 
 def _mhpc_problem(Bsz=1):
@@ -452,6 +448,29 @@ def test_offline_examples_default_to_cuda_and_refuse_without_it(
         seen.append(device)
         raise _Stop
     monkeypatch.setattr(ex, "load_robot", load_robot)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ex.main(["--out", str(tmp_path)])
+        assert seen == []
+    with pytest.raises(_Stop):
+        ex.main(["--out", str(tmp_path), "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(_Stop):
+        ex.main(["--out", str(tmp_path)])
+    assert seen == ["cpu", "cuda"]
+
+
+def test_hkd_mpc_demo_defaults_to_cuda_and_refuses_without_it(monkeypatch,
+                                                              tmp_path):
+    """The HKD-MPC demo makes its gait (and the runtime) on cuda unless
+    --device cpu is given; without a CUDA device it refuses to start."""
+    from cafempc_tpu_torch.examples import hkd_mpc_demo as ex
+    seen = []
+
+    def reference(gait, ref_csv, out, device, duration):
+        seen.append(device)
+        raise _Stop
+    monkeypatch.setattr(ex, "reference", reference)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             ex.main(["--out", str(tmp_path)])

@@ -54,6 +54,10 @@ MODULES = [
     "cafempc_tpu_torch.examples.barrel_roll_demo",
     "cafempc_tpu_torch.examples.loco_to_demo",
     "cafempc_tpu_torch.examples.br_reference_demo",
+    "cafempc_tpu_torch.examples.hkd_mpc_demo",
+    "cafempc_tpu_torch.viz",
+    "cafempc_tpu_torch.viz.plots",
+    "cafempc_tpu_torch.viz.animator",
     "cafempc_tpu_torch.tools",
     "cafempc_tpu_torch.tools.scenario_sweep",
 ]

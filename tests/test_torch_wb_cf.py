@@ -1,0 +1,151 @@
+"""The closed-form FK derivative bundle of the port's knot-batched
+whole-body linearization (`wb_lane.cf_bundle`, CAFEMPC_WB_CF=1) against
+the JAX package's, with the knot axis first in the port and last in the
+JAX module, and against the port's default (jvp) path, f64 on CPU, on the
+synthetic quadruped.  Tolerances: tests/test_wb_lane.py's (1e-12 for the
+bundle, 1e-9 for the partials).  The JAX functions run op by op (their
+unrolled lane Cholesky takes XLA minutes to compile)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cafempc_tpu.models import wb_lane as jwl
+from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.models import synthetic_robot, wb_lane
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.reference.synthetic import \
+    synthetic_bound_reference_urdf
+
+F64 = torch.float64
+K = 4
+BG_ALPHA = 10.0
+
+
+def _rand_states(n, seed):
+    rng = np.random.default_rng(seed)
+    q = np.zeros((n, 18))
+    q[:, 0:3] = rng.normal(0, 0.3, (n, 3))
+    q[:, 2] += 0.25
+    q[:, 3:6] = rng.normal(0, 0.4, (n, 3))
+    q[:, 6:18] = np.tile([0.0, -0.8, 1.6], 4) + rng.normal(0, 0.4, (n, 12))
+    v = rng.normal(0, 1.0, (n, 18))
+    u = rng.normal(0, 5.0, (n, 12))
+    contact = (rng.random((n, 4)) > 0.4).astype(float)
+    contact[0], contact[1] = 1.0, 0.0
+    return dict(q=q, v=v, tau=np.concatenate([np.zeros((n, 6)), u], 1),
+                c=contact)
+
+
+@pytest.fixture(scope="module")
+def urdf_path(tmp_path_factory):
+    return synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp_path_factory.mktemp("robot")))
+
+
+@pytest.fixture(scope="module")
+def models(urdf_path):
+    """(JAX lane model, port model) of the same file."""
+    return (jwl.load_lane_model(urdf_path),
+            wb_lane.load_lane_model(urdf_path, "cpu", F64))
+
+
+@pytest.fixture(scope="module")
+def knots():
+    d = _rand_states(K, seed=7)
+    return d, {k: torch.as_tensor(a) for k, a in d.items()}
+
+
+def _jax(d):
+    """The knots in the JAX lane layout (knot axis last)."""
+    return {k: jnp.asarray(a.T) for k, a in d.items()}
+
+
+def _close(got, want, atol):
+    assert tuple(got.shape) == want.shape, (got.shape, want.shape)
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= atol, err
+
+
+def test_cf_bundle_matches_jax(models, knots):
+    """Every field of the bundle: the port's [K, ...] against the JAX
+    module's [..., K] with the knot axis moved to the front."""
+    jm, m = models
+    d, t = knots
+    got = wb_lane.cf_bundle(m, t["q"])
+    want = jwl.cf_bundle(jm, _jax(d)["q"])
+    assert got._fields == want._fields
+    for name in got._fields:
+        _close(getattr(got, name),
+               np.moveaxis(np.asarray(getattr(want, name)), -1, 0), 1e-12)
+
+
+def test_cf_bundle_leading_dims(models, knots):
+    """Knots with two leading dims [2, K/2] give the [K] bundle's values."""
+    _, m = models
+    q = knots[1]["q"]
+    flat = wb_lane.cf_bundle(m, q)
+    for a, b in zip(flat, wb_lane.cf_bundle(m, q.reshape(2, K // 2, -1))):
+        assert torch.equal(a, b.flatten(0, 1))
+
+
+@pytest.mark.parametrize("which", ["contact", "impulse"])
+def test_cf_partials_match_jax_and_default(models, knots, monkeypatch,
+                                           which):
+    """The CF contact-KKT and impulse partials against the JAX CF partials
+    (CAFEMPC_WB_CF=1) and against the port's default path, 1e-9."""
+    jm, m = models
+    d, t = knots
+    j = _jax(d)
+    monkeypatch.setenv("CAFEMPC_WB_CF", "1")
+    if which == "contact":
+        want = jwl.contact_kkt_dynamics_partials_lane(
+            jm, j["q"], j["v"], j["tau"], j["c"], BG_ALPHA)
+        got = wb_lane.contact_kkt_dynamics_partials_lane(
+            m, t["q"], t["v"], t["tau"], t["c"], BG_ALPHA)
+        default = wb_lane.contact_kkt_dynamics_partials_lane(
+            m, t["q"], t["v"], t["tau"], t["c"], BG_ALPHA, use_cf=False)
+    else:
+        want = jwl.impulse_dynamics_partials_lane(jm, j["q"], j["v"], j["c"])
+        got = wb_lane.impulse_dynamics_partials_lane(m, t["q"], t["v"],
+                                                     t["c"])
+        default = wb_lane.impulse_dynamics_partials_lane(
+            m, t["q"], t["v"], t["c"], use_cf=False)
+    assert len(got) == len(want) == len(default)
+    for g, w, dflt in zip(got, want, default):
+        _close(g, np.moveaxis(np.asarray(w), -1, 0), 1e-9)
+        _close(g, dflt.numpy(), 1e-9)
+
+
+def test_switch_is_read_where_the_fns_are_made(urdf_path, monkeypatch):
+    """make_mhpc_fns reads CAFEMPC_WB_CF once: the WB segment made with it
+    set takes the bundle after the variable is gone, and its partials
+    equal the default path's; made without it, it never does."""
+    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=1.0))
+    qr.initialize(0.4)
+    cfg = mp.MHPCConfig(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
+                        wb_block=16)
+    plan_np, _, Xbar0, Ubar0, _ = mp.build_mhpc_plan(qr, cfg)
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(Xbar0[None, :16] + rng.normal(0, 0.02, (1, 16, 36)))
+    U = torch.as_tensor(rng.normal(0, 2.0, (1, 16, 12)))
+    sd = from_numpy(plan_np, "cpu", F64).step
+    sd = type(sd)(*[a[:16] for a in sd])
+    calls = []
+    real = wb_lane.cf_bundle
+    monkeypatch.setattr(wb_lane, "cf_bundle",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("CAFEMPC_WB_CF", "1")
+    cf_fns = mp.make_mhpc_fns(cfg, m, "wb")
+    monkeypatch.delenv("CAFEMPC_WB_CF")
+    got = cf_fns.dyn_partials(X, U, sd) + (cf_fns.reset_partial(X, sd),)
+    assert len(calls) == 2
+    plain = mp.make_mhpc_fns(cfg, m, "wb")
+    monkeypatch.setenv("CAFEMPC_WB_CF", "1")
+    want = plain.dyn_partials(X, U, sd) + (plain.reset_partial(X, sd),)
+    assert len(calls) == 2
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) / scale <= 1e-9
