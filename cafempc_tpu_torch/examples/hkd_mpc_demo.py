@@ -1,16 +1,21 @@
 """Closed-loop HKD-MPC demo (port of `examples/hkd_mpc_demo.py`).
 
     python -m cafempc_tpu_torch.examples.hkd_mpc_demo --out DIR \\
-        [--gait pace|bound] [--ref CSV] [--steps 15] [--device cuda|cpu]
+        [--gait pace|bound] [--ref CSV] [--settings-dir DIR] [--steps 15]
+        [--device cuda|cpu]
 
 Receding-horizon solves of `HKDMPCRuntime` on `--device` against a
 simulated plant, the HKD model itself (`models/hkd.py`'s discrete
 dynamics under the commanded controls, and its reset map where the contact
 changes between two solves), then the gait and convergence plots
-(`viz/plots.py`) in `--out`.  The in-code settings (`HKDConfig()`) and the
-JAX demo's budget (3 AL x 6 DDP) stand in for the reference's settings
-files.  The gait: `--ref`, a quad_reference.csv in the reference's leg
-order (read with reorder=True, as the JAX demo reads its own); else
+(`viz/plots.py`) in `--out`.  Settings: `--settings-dir` is laid out like
+the reference root, and the demo reads
+`HKDMPC/settings/{constraint_params,ddp_setting}.info` there as the JAX
+demo does; without it, the in-code defaults (`HKDConfig()`,
+`SolverOptions()`).  Either way the JAX demo's budget (3 AL x 6 DDP)
+applies, and the demo prints which source it used.  The gait: `--ref`, a
+quad_reference.csv in the reference's leg order (read with reorder=True,
+as the JAX demo reads its own); else
 `--gait pace` (the default) generated on the synthetic quadruped
 (`reference/generator.py`) into `--out/<gait>/quad_reference.csv`, or
 `--gait bound`, the synthetic bound reference (`reference/synthetic.py`).
@@ -20,6 +25,7 @@ JSON line `{"hkd_mpc_demo": {...}}`; exits 1 when the body height leaves
 device refuses to start.
 """
 import argparse
+import dataclasses
 import json
 import os
 
@@ -34,11 +40,27 @@ from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
                                                         load_quad_reference)
 from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
-from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.solver.options import (SolverOptions,
+                                              load_solver_options)
 
-OPTS = SolverOptions(max_DDP_iter=6, max_AL_iter=3)   # the JAX demo's budget
+BUDGET = dict(max_DDP_iter=6, max_AL_iter=3)   # the JAX demo's budget
+OPTS = SolverOptions(**BUDGET)
 Z_RANGE = (0.05, 0.6)     # body height the loop accepts [m]
 GEN_KW = dict(vx=0.5, transition_time=0.6)
+
+
+def settings(settings_dir=None):
+    """(HKDConfig, SolverOptions with the demo's budget, source) from
+    `settings_dir`/HKDMPC/settings, or from the in-code defaults."""
+    if settings_dir is None:
+        return hp.HKDConfig(), OPTS, \
+            f"in-code defaults: HKDConfig(), SolverOptions() with {BUDGET}"
+    d = os.path.join(settings_dir, "HKDMPC", "settings")
+    cfg = hp.load_hkd_constraint_params(
+        os.path.join(d, "constraint_params.info"), hp.HKDConfig())
+    opts = dataclasses.replace(
+        load_solver_options(os.path.join(d, "ddp_setting.info")), **BUDGET)
+    return cfg, opts, f"{d} with {BUDGET}"
 
 
 def reference(gait, ref_csv, out, device, duration):
@@ -107,19 +129,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gait", default="pace")
     ap.add_argument("--ref", default=None)
+    ap.add_argument("--settings-dir", default=None)
     ap.add_argument("--steps", type=int, default=15)
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     check_device(args.device)
     os.makedirs(args.out, exist_ok=True)
-    cfg = hp.HKDConfig()
+    cfg, opts, source = settings(args.settings_dir)
+    print(f"settings: {source}", flush=True)
     dt_mpc = cfg.nsteps_between_mpc * cfg.dt_sim
     qr = QuadReference(reference(
         args.gait, args.ref, args.out, args.device,
         max(2.0, cfg.plan_duration + args.steps * dt_mpc + 0.5)))
     qr.initialize(cfg.plan_duration)
-    rt = HKDMPCRuntime(qr, cfg, OPTS, device=args.device)
+    rt = HKDMPCRuntime(qr, cfg, opts, device=args.device)
     steps = []
 
     def report(it, x, tape):
@@ -140,7 +164,7 @@ def main(argv=None):
     ok = all(Z_RANGE[0] < s["z"] < Z_RANGE[1] and np.isfinite(s["cost"])
              for s in steps)
     print(json.dumps({"hkd_mpc_demo": dict(ok=ok, steps=steps,
-                                           out=args.out)}))
+                                           settings=source, out=args.out)}))
     return 0 if ok else 1
 
 

@@ -16,6 +16,7 @@ materialized at the input's dtype and device, so the f32 path builds no
 f64 temporaries.
 """
 import torch
+from torch.func import jacfwd, vmap
 
 from cafempc_tpu_torch.utils.rotations import (
     eul_to_rot, omega_to_euldrate_mat, rotx, roty, rotz, skew)
@@ -89,12 +90,51 @@ def _rot_derivs(eul):
     return R, ez @ R, Rz @ ey @ Ry @ Rx, Rz @ Ry @ ex @ Rx
 
 
+def _as_four(qleg):
+    """One leg's angles [..., 3] in every leg's slot: [..., 4, 3]."""
+    return qleg.unsqueeze(-2).expand(*qleg.shape[:-1], 4, 3)
+
+
+def leg_fk_local(qleg, leg):
+    """Foot position in the body frame of one leg: qleg [..., 3]
+    [abad, hip, knee] -> [..., 3]; leg a static int 0..3."""
+    return _legs_fk_local(_as_four(qleg))[..., leg, :]
+
+
+def leg_jacobian_local(qleg, leg):
+    """Analytic 3x3 Jacobian of `leg_fk_local` wrt the leg's joint angles:
+    [..., 3, 3]."""
+    return _legs_jacobian_local(_as_four(qleg))[..., leg, :, :]
+
+
 def foot_position(pos, eul, qleg, leg):
     """World-frame foot position of one leg (reference
     `compute_foot_position`): pos/eul/qleg [..., 3], leg a static int."""
-    qd4 = qleg.unsqueeze(-2).expand(*qleg.shape[:-1], 4, 3)
-    p_l = _legs_fk_local(qd4)[..., leg, :]
+    p_l = leg_fk_local(qleg, leg)
     return pos + (eul_to_rot(eul) @ p_l.unsqueeze(-1)).squeeze(-1)
+
+
+def foot_world_jacobians(pos, eul, qleg, leg):
+    """Analytic partials of the world-frame foot position: (J_eul
+    [..., 3, 3], J_q [..., 3, 3]); d/dpos is the identity."""
+    R, dR_dy, dR_dp, dR_dr = _rot_derivs(eul)
+    p_l = leg_fk_local(qleg, leg).unsqueeze(-1)
+    J_eul = torch.cat([dR_dy @ p_l, dR_dp @ p_l, dR_dr @ p_l], dim=-1)
+    return J_eul, R @ leg_jacobian_local(qleg, leg)
+
+
+def foot_jacobian(pos, eul, qleg, leg):
+    """d foot_position / d (pos(3), eul(3), qdummy(12)): [..., 3, 18] with
+    the column layout [d/dpos, d/deul, d/dqdummy] of the reference's
+    `comp_foot_jacob_*` (HKDReset.h:131-133); the qdummy columns are
+    zero outside the leg's own three."""
+    J_eul, J_q = foot_world_jacobians(pos, eul, qleg, leg)
+    shape = torch.broadcast_shapes(pos.shape[:-1], J_eul.shape[:-2])
+    I3 = torch.eye(3, dtype=J_q.dtype, device=J_q.device)
+    J_q = J_q.expand(shape + (3, 3))
+    return torch.cat([I3.expand(shape + (3, 3)), J_eul.expand(shape + (3, 3)),
+                      J_q.new_zeros(shape + (3, 3 * leg)), J_q,
+                      J_q.new_zeros(shape + (3, 9 - 3 * leg))], dim=-1)
 
 
 def _feet_world(pos, eul, qd4):
@@ -210,6 +250,30 @@ def dynamics_partials(x, u, dt, contact):
     return A, dtm * Fu
 
 
+def _sample_jacfwd(fn, argnums, args, trail):
+    """jacfwd of the one-sample function fn wrt `argnums`, vmapped over the
+    inputs' broadcast leading dimensions, flattened into one; trail[i] is
+    the number of trailing dimensions of one sample of args[i]."""
+    shape = torch.broadcast_shapes(*(a.shape[:a.dim() - t]
+                                     for a, t in zip(args, trail)))
+    flat = [a.expand(shape + a.shape[a.dim() - t:])
+            .reshape((-1,) + a.shape[a.dim() - t:])
+            for a, t in zip(args, trail)]
+    out = vmap(jacfwd(fn, argnums=argnums))(*flat)
+    if isinstance(out, tuple):
+        return tuple(o.reshape(shape + o.shape[1:]) for o in out)
+    return out.reshape(shape + out.shape[1:])
+
+
+def dynamics_partials_ad(x, u, dt, contact):
+    """A = dxnext/dx, B = dxnext/du by forward-mode AD of `dynamics` (48
+    tangents a sample): the reference for `dynamics_partials`, and the
+    CAFEMPC_HKD_AD_PARTIALS=1 path of `make_hkd_fns`.  [..., 24, 24]
+    each."""
+    return _sample_jacfwd(dynamics, (0, 1), (x, u, dt, contact),
+                          (1, 1, 0, 1))
+
+
 def compute_hkd_state(eul, pos, qJ, contact):
     """Build qdummy from joint angles + FK (reference compute_hkd_state,
     HKDModel.h:66-96): joint angles for swing legs, foot positions for
@@ -243,6 +307,13 @@ def reset_map(x, contact_cur, contact_next):
     swing->stance: qdummy_leg := [pf_x, pf_y, 0] via FK from joint angles.
     """
     return reset_map_td_lo(x, *_td_lo(contact_cur, contact_next))
+
+
+def reset_map_partial_ad(x, contact_cur, contact_next):
+    """Px = d reset / dx by forward-mode AD of `reset_map` (24 tangents a
+    sample): the reference for `reset_map_partial`.  [..., 24, 24]."""
+    return _sample_jacfwd(reset_map, 0, (x, contact_cur, contact_next),
+                          (1, 1, 1))
 
 
 def reset_map_partial_td_lo(x, td4, lo4):

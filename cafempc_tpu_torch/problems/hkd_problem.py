@@ -7,11 +7,18 @@
   * touchdown AL constraint + HKD reset      (HKDConstraints.cpp:68-171,
                                               HKDReset.h:41-136)
 
-The plan builder is host-side numpy, copied here because the JAX module
-imports jax at its top.  `make_hkd_fns()` returns torch functions that take
-the whole batch at once: states [B, n, 24] against plan slices [n, ...].
+The plan builder and the settings loader are host-side numpy, copied here
+because the JAX module imports jax at its top.  `make_hkd_fns()` returns
+torch functions that take the whole batch at once: states [B, n, 24]
+against plan slices [n, ...].  CAFEMPC_HKD_AD_PARTIALS=1, read when the
+functions are made, takes the dynamics partials by forward-mode AD
+(`hkd.dynamics_partials_ad`) instead of the closed form: the JAX package's
+A/B switch.  The fused LQ hook computes its own partials, so the switch
+changes nothing under it.
 """
 import dataclasses
+import os
+import re
 
 import numpy as np
 import torch
@@ -43,6 +50,37 @@ class HKDConfig:
     td_al_sigma: float = 20.0
     td_al_sigma_max: float = 1e4
     td_al_lambda: float = 0.0
+
+
+def load_hkd_constraint_params(fname, cfg: HKDConfig):
+    """`cfg` with the ReB and touchdown-AL parameters of the reference's
+    HKDMPC/settings/constraint_params.info: its `GRF_ReB` block (delta,
+    delta_min, eps) and `TD_AL` block (sigma, sigma_max, lambda).  A block
+    or key the file lacks keeps the value of `cfg`."""
+    with open(fname) as fh:
+        txt = fh.read()
+
+    def block(name):
+        m = re.search(name + r"\s*\{(.*?)\}", txt, re.S)
+        if not m:
+            return {}
+        out = {}
+        for ln in m.group(1).splitlines():
+            p = ln.split()
+            if len(p) == 2:
+                out[p[0]] = float(p[1])
+        return out
+
+    g = block("GRF_ReB")
+    t = block("TD_AL")
+    return dataclasses.replace(
+        cfg,
+        grf_reb_delta=g.get("delta", cfg.grf_reb_delta),
+        grf_reb_delta_min=g.get("delta_min", cfg.grf_reb_delta_min),
+        grf_reb_eps=g.get("eps", cfg.grf_reb_eps),
+        td_al_sigma=t.get("sigma", cfg.td_al_sigma),
+        td_al_sigma_max=t.get("sigma_max", cfg.td_al_sigma_max),
+        td_al_lambda=t.get("lambda", cfg.td_al_lambda))
 
 
 # ------------------------------------------------------------------
@@ -188,6 +226,13 @@ def build_hkd_plan(quad_ref: QuadReference, cfg: HKDConfig,
     return plan, pen, Xbar0, Ubar0, meta
 
 
+def pen_to_device(pen: PenaltyParams, dtype=torch.float32, device="cuda"):
+    """The host penalty parameters of `build_hkd_plan` as tensors of `dtype`
+    on `device`."""
+    return PenaltyParams(*[torch.as_tensor(np.asarray(a), dtype=dtype,
+                                           device=device) for a in pen])
+
+
 # ------------------------------------------------------------------
 # Problem functions (batched torch, consumed by the solver)
 # ------------------------------------------------------------------
@@ -198,6 +243,17 @@ _FACETS = np.array([[0.0, 0.0, 1.0],
                     [1.0, 0.0, MU_FRIC],
                     [0.0, -1.0, MU_FRIC],
                     [0.0, 1.0, MU_FRIC]])
+
+
+def _np_facets():
+    """The friction-pyramid facets [5, 3] (numpy, a copy)."""
+    return _FACETS.copy()
+
+
+def _facets(dtype=torch.float64, device="cuda"):
+    """The friction-pyramid facets [5, 3] as a tensor."""
+    return torch.as_tensor(_FACETS, dtype=dtype, device=device)
+
 
 # constant constraint Jacobian d g / d u (block-diag facets per leg)
 _GU_CONST = np.zeros((N_PCON, 24))
@@ -264,8 +320,12 @@ def make_hkd_fns() -> ProblemFns:
     def dyn(x, u, sd):
         return hkd.dynamics(x, u, sd.dt, sd.contact), empty(x, 0)
 
+    partials = (hkd.dynamics_partials_ad
+                if os.environ.get("CAFEMPC_HKD_AD_PARTIALS", "0") == "1"
+                else hkd.dynamics_partials)
+
     def dyn_partials(x, u, sd):
-        A, B = hkd.dynamics_partials(x, u, sd.dt, sd.contact)
+        A, B = partials(x, u, sd.dt, sd.contact)
         return A, B, empty(x, 0, 24), empty(x, 0, 24)
 
     def reset(x, sd):
@@ -324,8 +384,7 @@ def make_hkd_fns() -> ProblemFns:
     def path_con(x, u, y, sd):
         """g = facets @ grf_leg per leg (HKDConstraints.cpp:36-53); stance
         masking happens via PenaltyParams.reb_active."""
-        F = torch.as_tensor(_FACETS, dtype=u.dtype, device=u.device)
-        return torch.einsum("fi,...li->...lf", F,
+        return torch.einsum("fi,...li->...lf", _facets(u.dtype, u.device),
                             u[..., 0:12].unflatten(-1, (4, 3))).flatten(-2)
 
     def path_con_partials(x, u, y, sd):

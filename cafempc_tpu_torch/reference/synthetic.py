@@ -19,8 +19,9 @@ The result is in HKD (Cheetah-Software) leg order FR, FL, HR, HL with
 `synthetic_bound_reference_urdf` returns the same gait in urdf leg order
 FL, FR, HL, HR, as the MHPC cascade reads the CSV (without `reorder`).
 
-`write_synthetic_br_settings` writes a stand-in for the barrel-roll
-trajectory optimization's settings files (see its docstring).
+`write_synthetic_br_settings` and `write_synthetic_hkd_settings` write
+stand-ins for the barrel-roll trajectory optimization's and the HKD-MPC's
+settings files (see their docstrings).
 """
 import dataclasses
 import json
@@ -29,6 +30,7 @@ import os
 import numpy as np
 
 from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.problems import hkd_problem as hp
 from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference import gait as gait_mod
 from cafempc_tpu_torch.reference.generator import (DEFAULT_FOOTHOLDS, CoMPlan,
@@ -189,20 +191,56 @@ def write_synthetic_br_settings(setting_dir):
         json.dump({f"cost_phase_{i + 1}": phase for i in range(6)}, fh,
                   indent=2)
 
-    def block(name, kv):
-        return f"{name}\n{{\n" + "".join(
-            f"    {k} {str(v).lower() if isinstance(v, bool) else repr(v)}\n"
-            for k, v in kv.items()) + "}\n"
     with open(os.path.join(setting_dir, "br_constraint_params.info"),
               "w") as fh:
         for name, (delta, delta_min, eps) in BR_REB.items():
-            fh.write(block(f"{name}_ReB", dict(
+            fh.write(_info_block(f"{name}_ReB", dict(
                 delta=delta, delta_min=delta_min, eps=eps)))
-        fh.write(block("TD_AL", BR_TD_AL))
-    opts = SolverOptions()
-    ddp = {f.name: getattr(opts, f.name)
-           for f in dataclasses.fields(SolverOptions)
-           if f.name not in ("ls_eps_min", "reg_max", "reg_min_init")}
+        fh.write(_info_block("TD_AL", BR_TD_AL))
     with open(os.path.join(setting_dir, "br_ddp_setting.info"), "w") as fh:
-        fh.write(block("ddp", ddp))
+        fh.write(_ddp_block())
     return setting_dir
+
+
+def _info_block(name, kv):
+    """One block of a boost property-tree .info file."""
+    return f"{name}\n{{\n" + "".join(
+        f"    {k} {str(v).lower() if isinstance(v, bool) else repr(v)}\n"
+        for k, v in kv.items()) + "}\n"
+
+
+def _ddp_block():
+    """The `ddp` block of a ddp_setting.info with the `SolverOptions()`
+    defaults of the reference struct's fields."""
+    opts = SolverOptions()
+    return _info_block("ddp", {
+        f.name: getattr(opts, f.name)
+        for f in dataclasses.fields(SolverOptions)
+        if f.name not in ("ls_eps_min", "reg_max", "reg_min_init")})
+
+
+def write_synthetic_hkd_settings(root):
+    """Write a stand-in for the reference's HKD-MPC settings under `root`,
+    laid out like the reference tree: HKDMPC/settings/constraint_params.info
+    (the `GRF_ReB` and `TD_AL` blocks) and HKDMPC/settings/ddp_setting.info
+    (the `ddp` block), in the formats that
+    `hkd_problem.load_hkd_constraint_params` and
+    `solver/options.load_solver_options` parse.  Returns `root`.
+
+    They are not the robot's settings: the values are the in-code defaults
+    of `HKDConfig()` and `SolverOptions()`, so a solve on them is the solve
+    on those defaults.  With the reference's files in place of these, the
+    same code runs on them."""
+    d = os.path.join(root, "HKDMPC", "settings")
+    os.makedirs(d, exist_ok=True)
+    cfg = hp.HKDConfig()
+    with open(os.path.join(d, "constraint_params.info"), "w") as fh:
+        fh.write(_info_block("GRF_ReB", dict(
+            delta=cfg.grf_reb_delta, delta_min=cfg.grf_reb_delta_min,
+            eps=cfg.grf_reb_eps)))
+        fh.write(_info_block("TD_AL", dict(
+            sigma=cfg.td_al_sigma, sigma_max=cfg.td_al_sigma_max,
+            **{"lambda": cfg.td_al_lambda})))
+    with open(os.path.join(d, "ddp_setting.info"), "w") as fh:
+        fh.write(_ddp_block())
+    return root

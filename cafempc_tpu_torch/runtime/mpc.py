@@ -61,12 +61,19 @@ class CommandTape:
 
 class HKDMPCRuntime:
     def __init__(self, quad_ref: QuadReference, cfg: hp.HKDConfig,
-                 opts: SolverOptions, device, dtype=torch.float64,
+                 opts: SolverOptions, device="cuda", dtype=torch.float64,
                  endpoint=None, debug_intermtraj=False):
-        """endpoint: a `comms.udpm.LCMEndpoint` for the solver telemetry
+        """device: where the solves run, the card unless the caller asks
+        for the CPU; a CUDA device on a machine without one raises.
+        endpoint: a `comms.udpm.LCMEndpoint` for the solver telemetry
         (`solver_info_lcmt` on "DDP_Solver_Info"); debug_intermtraj:
         publish `solver_intermtraj_lcmt` on "intermediate_ddp_traj" after
         every AL outer iteration (MultiPhaseDDP.h:95-107)."""
+        if torch.device(device).type == "cuda" \
+                and not torch.cuda.is_available():
+            raise RuntimeError(f"HKDMPCRuntime: no CUDA device for device="
+                               f"{device!r}; pass device='cpu' to run on "
+                               "the CPU")
         self.endpoint = endpoint
         self.qr = quad_ref
         self.cfg = cfg

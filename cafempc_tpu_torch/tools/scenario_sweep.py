@@ -5,7 +5,8 @@ each a warm-started MPC chain with a plant step between re-solves (port of
 
     python -m cafempc_tpu_torch.tools.scenario_sweep [--total 4096]
         [--chunk 256] [--config mhpc|hkd] [--chain 4] [--out PATH]
-        [--ref-dir DIR] [--settings-dir DIR] [--device cuda|cpu]
+        [--ref-dir DIR] [--settings-dir DIR] [--arcdog-urdf PATH]
+        [--device cuda|cpu]
 
 Gaits: `--ref-dir` is laid out like the reference's Reference/Data
 (`<gait>/quad_reference.csv`, urdf leg order; default: `sweep_refs/`
@@ -20,8 +21,12 @@ Mini Cheetah, whose URDF is not in the repository.  Settings:
 constraint_params_regular.info, ddp_setting.info}`,
 `HKDMPC/settings/ddp_setting.info`); without it, the in-code defaults
 (`MHPCConfig()`, `SolverOptions()`), with the tool's iteration caps either
-way.  The arcdog half of the JAX tool needs the arcdog URDF and is not
-run; the `mhpc` total is divided over the cases that run.
+way.  The arcdog half (`mhpc` only) runs with `--arcdog-urdf`, the robot's
+URDF by path: its gaits are generated in memory on it (`arcdog_quad_ref`:
+the JAX tool's 2.0 s, vx 0.5 m/s, height 0.36 m, swing 0.12 m, a 0.6 s
+ramp), chained like the mini-cheetah gaits, and solved by a solver of
+their own; without the flag they are listed under `skipped`.  The `mhpc`
+total is divided over the cases that run.
 
 `mhpc` (default): per gait, a chain of `--chain` receding-horizon plans
 `dt_mpc` apart (window 0.75 s: 25 WB + 10 SRB knots), each scenario
@@ -75,6 +80,8 @@ HKD_GAITS = ["bound", "pace", "flypace"]
 # a missing gait CSV is generated with these (the JAX tool's arcdog
 # settings, at the generator's Mini Cheetah height and swing)
 GEN_KW = dict(duration=2.0, vx=0.5, transition_time=0.6)
+# the arcdog gaits (the JAX tool's _arcdog_quad_ref)
+ARCDOG_GEN_KW = dict(GEN_KW, z_des=0.36, swing_height=0.12)
 MHPC_WINDOW = 0.75          # s of reference a plan spans (bench.py:87-110)
 MHPC_ITERS = dict(max_AL_iter=4, max_DDP_iter=1)   # MHPCLocomotion.cpp:86-87
 HKD_ITERS = dict(max_AL_iter=2, max_DDP_iter=1)
@@ -99,6 +106,24 @@ def quad_ref(csv, plan_dur, reorder=False):
     qr = QuadReference(load_quad_reference(csv, reorder=reorder))
     qr.initialize(plan_dur)
     return qr
+
+
+def arcdog_quad_ref(gait, plan_dur, model):
+    """The arcdog gait generated in memory on `model` (urdf leg order) with
+    ARCDOG_GEN_KW, initialized to a plan window of `plan_dur`."""
+    qr = QuadReference(generator.generate_reference(gait, model=model,
+                                                    **ARCDOG_GEN_KW))
+    qr.initialize(plan_dur)
+    return qr
+
+
+def arcdog_models(urdf, device):
+    """The arcdog whole-body model from its URDF on `device`, f32 and f64;
+    a path that is not a file raises."""
+    if not os.path.isfile(urdf):
+        raise FileNotFoundError(f"--arcdog-urdf: no file at {urdf}")
+    return {dt: wbm.load_model(urdf, device, dt)
+            for dt in (torch.float32, torch.float64)}
 
 
 def mhpc_settings(settings_dir=None):
@@ -453,8 +478,11 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join(REPO, "SWEEP_torch.json"))
     ap.add_argument("--ref-dir", default=None)
     ap.add_argument("--settings-dir", default=None)
+    ap.add_argument("--arcdog-urdf", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.arcdog_urdf is not None and args.config != "mhpc":
+        ap.error("--arcdog-urdf belongs to --config mhpc")
     check_device(args.device)
     device = torch.device(args.device)
     dtype = torch.float32
@@ -468,6 +496,9 @@ def main(argv=None):
         urdf = synthetic_robot.write_synthetic_quadruped_urdf(tmp)
         models = {dt: wbm.load_model(urdf, device, dt)
                   for dt in (torch.float32, torch.float64)}
+    robots = {"mini_cheetah": models}
+    if args.arcdog_urdf is not None:
+        robots["arcdog"] = arcdog_models(args.arcdog_urdf, device)
     gaits = HKD_GAITS if args.config == "hkd" else MC_GAITS
     data = {}
     for gait in gaits:
@@ -502,22 +533,39 @@ def main(argv=None):
             print(f"mini_cheetah/{gait:10s} {r}", flush=True)
     else:
         cfg, opts, result["settings"] = mhpc_settings(args.settings_dir)
-        result["skipped"] = {
-            f"arcdog/{g}": "needs the arcdog URDF, which is not in the "
-            "repository" for g in ARCDOG_GAITS}
-        model = models[torch.float32]
-        solve_b = make_batched_solver(mp.make_mhpc_fns_segmented(cfg, model),
-                                      opts, mesh=mesh, **MHPC_KW)
-        seen = set()
-        for ci, gait in enumerate(MC_GAITS):
-            qr = quad_ref(data[gait]["csv"], MHPC_WINDOW)
+        cases = [("mini_cheetah", g) for g in MC_GAITS]
+        if args.arcdog_urdf is None:
+            result["skipped"] = {
+                f"arcdog/{g}": "needs the arcdog URDF: pass --arcdog-urdf "
+                "PATH" for g in ARCDOG_GAITS}
+        else:
+            result["arcdog_urdf"] = os.path.abspath(args.arcdog_urdf)
+            result["arcdog_gaits"] = {}
+            cases += [("arcdog", g) for g in ARCDOG_GAITS]
+        solvers, seen = {}, {}          # one solver per robot
+        for ci, (robot, gait) in enumerate(cases):
+            model = robots[robot][torch.float32]
+            if robot == "arcdog":
+                t0 = time.perf_counter()
+                qr = arcdog_quad_ref(gait, MHPC_WINDOW,
+                                     robots[robot][torch.float64])
+                result["arcdog_gaits"][gait] = dict(
+                    generated="in memory",
+                    seconds=round(time.perf_counter() - t0, 3))
+            else:
+                qr = quad_ref(data[gait]["csv"], MHPC_WINDOW)
+            if robot not in solvers:
+                solvers[robot] = make_batched_solver(
+                    mp.make_mhpc_fns_segmented(cfg, model), opts, mesh=mesh,
+                    **MHPC_KW)
             chain_steps, propagators = mhpc_chain(qr, cfg, model, device,
                                                   dtype, args.chain)
-            r = run_case_chain(solve_b, mesh, chain_steps,
-                               per_case(len(MC_GAITS), ci), args.chunk,
-                               rng, dtype, propagators, seen_bs=seen)
-            result["cases"][f"mini_cheetah/{gait}"] = r
-            print(f"mini_cheetah/{gait:10s} {r}", flush=True)
+            r = run_case_chain(solvers[robot], mesh, chain_steps,
+                               per_case(len(cases), ci), args.chunk, rng,
+                               dtype, propagators,
+                               seen_bs=seen.setdefault(robot, set()))
+            result["cases"][f"{robot}/{gait}"] = r
+            print(f"{robot}/{gait:10s} {r}", flush=True)
 
     cases = result["cases"].values()
     timed = sum(c.get("timed_solves", 0) for c in cases)

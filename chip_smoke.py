@@ -188,6 +188,30 @@ Phases (one line of output each, unless noted):
      f. the HKD-MPC demo's closed loop (`examples/hkd_mpc_demo.py` without
         the plots) on a pace generated on the card, 10 MPC steps: height
         in (0.05, 0.6) m, finite costs, ms per update;
+ 13. the JAX package's last HKD surface and config 5's arcdog half, on
+     stand-in settings files that `write_synthetic_hkd_settings` writes
+     from the in-code defaults:
+     a. phase 3's bench default built as the JAX bench builds it
+        (bench.py:58-84): `load_hkd_constraint_params`,
+        `load_solver_options` cut to 2 AL x 1 DDP, `pen_to_device`; timed
+        solves, launches per solve, one profiled solve, then against phase
+        3's solve (success flags and iteration counts per scenario equal,
+        cost within COST_RTOL);
+     b. phase 3b's configuration with CAFEMPC_HKD_AD_PARTIALS=1 (set only
+        inside the sub-phase) against the closed form, in turns (closed,
+        AD, AD, closed): ms per solve, launches, device busy ms, idle share
+        and peak memory, each solve against the first closed-form turn
+        (flags and iterations equal, cost within COST_RTOL); A and B of
+        both forms on 3b's first LQ operands in f64 to 1e-12 normalized;
+     c. `HKDMPCRuntime(qr, cfg, opts)` with no device argument, from the
+        files, initialize + 3 updates on phase 5's states: its solves on
+        the card, commands within 1e-10 of phase 5's;
+     d. the arcdog half of the `mhpc` sweep (the tool's `--arcdog-urdf`
+        path) given the synthetic quadruped's URDF as a stand-in for the
+        arcdog's: both arcdog gaits generated on the card, chains of 2
+        plans, chunks of 64, 11a's keywords: solves/s, success rate, the
+        sweep's and linroll's launches; every cost and propagated state
+        finite;
 each phase's wall seconds (a `[t]` line after it), then the card's name
 and power limit, one JSON line of the kernels (`launches` each one's
 launches in phase 3's profiled solve, `ms` its device time per launch by
@@ -203,6 +227,7 @@ Exits non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -247,12 +272,13 @@ from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
                                                         wb_state_ref_at)
 from cafempc_tpu_torch.reference.synthetic import (
     synthetic_bound_reference, synthetic_bound_reference_urdf,
-    write_synthetic_br_settings)
+    write_synthetic_br_settings, write_synthetic_hkd_settings)
 from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver import hsddp
 from cafempc_tpu_torch.solver.hsddp import make_solver
-from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.solver.options import (SolverOptions,
+                                              load_solver_options)
 from cafempc_tpu_torch.tools import scenario_sweep as ss
 
 DEVICE = "cuda"
@@ -643,13 +669,17 @@ def phase_hkd_kernels(label):
     return f32
 
 
-def bench_problem(dtype):
+def bench_problem(dtype, cfg=None, pen_to_device=False):
     """The bench `hkd` configuration (JAX package bench.py:58-84) on the
     synthetic bound reference: plan, penalties, B perturbed x0 and the
-    initial trajectory, plus the plan's phase metadata."""
+    initial trajectory, plus the plan's phase metadata.  cfg: the
+    HKDConfig (default: the in-code one at the bench's plan);
+    pen_to_device: convert the penalties by `hp.pen_to_device`, as the JAX
+    bench does (else with the plan, by `convert.from_numpy`)."""
     qr = QuadReference(synthetic_bound_reference(duration=2.0))
     qr.initialize(PLAN_DURATION)
-    cfg = hp.HKDConfig(plan_duration=PLAN_DURATION, n_steps_max=N_STEPS)
+    cfg = cfg or hp.HKDConfig(plan_duration=PLAN_DURATION,
+                              n_steps_max=N_STEPS)
     plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(qr, cfg)
     body = np.zeros(12)
     body[5] = 0.2486
@@ -661,8 +691,10 @@ def bench_problem(dtype):
     x0 = torch.cat([torch.tensor(body, dtype=f64), qd])
     gen = torch.Generator().manual_seed(SEED)
     x0_b = x0[None] + 0.01 * torch.randn(B, 24, generator=gen, dtype=f64)
-    plan, pen, Xbar0, Ubar0 = convert.from_numpy(
-        (plan_np, pen_np, Xbar0, Ubar0), DEVICE, dtype)
+    plan, Xbar0, Ubar0 = convert.from_numpy((plan_np, Xbar0, Ubar0),
+                                            DEVICE, dtype)
+    pen = (hp.pen_to_device(pen_np, dtype, DEVICE) if pen_to_device
+           else convert.from_numpy(pen_np, DEVICE, dtype))
     return (plan, broadcast_batch(pen, B), x0_b.to(DEVICE, dtype),
             broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B)), meta
 
@@ -755,11 +787,12 @@ def fused_hooks():
                 fused_lq=hf.make_hkd_fused_lq())
 
 
-def phase_solve(label, tag, name, args, meta, hooks, want_kernels):
+def phase_solve(label, tag, name, args, meta, hooks, want_kernels,
+                opts=OPTS):
     """Timed solves of one configuration through the kernels: counts set
     to 0 just before and read just after; every kernel in want_kernels
     must have launched, and every scenario must succeed."""
-    solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **hooks, **SOLVE_KW)
+    solve = make_batched_solver(hp.make_hkd_fns(), opts, **hooks, **SOLVE_KW)
     reset_counts()
     res, cost, success, ms = timed_solves(solve, args, N_TIMED)
     launches = read_counts()
@@ -793,7 +826,7 @@ def phase_solves(label):
     """Phases 3, 3b and 4: the bench default through all four kernels, the
     configuration without the fused LQ and trial, and the bench default
     through the plain twins.  Returns the kernels' launches in phase 3's
-    profiled solve, and 3b's (result, cost, success)."""
+    profiled solve, 3b's (result, cost, success) and 3's."""
     args, meta = bench_problem(torch.float32)
     res, cost, success, med, launches = phase_solve(
         label, "3", "bench default (fused LQ + trial)", args, meta,
@@ -821,23 +854,22 @@ def phase_solves(label):
         fail("kernel and plain solves are not finite")
     if not torch.equal(success, success_p) or not dc <= COST_RTOL:
         fail("the kernel solve disagrees with the plain-twin solve")
-    return launches, unfused
+    return launches, unfused, (res, cost, success)
 
 
 def phase_runtime(label, x0):
     """Phase 5: the MPC runtime at B=1 in f64, initialize + 5 updates, each
-    fed the solver's own predicted state one MPC period ahead."""
+    fed the solver's own predicted state one MPC period ahead.  Returns
+    each step's (state, command tape)."""
     qr = QuadReference(synthetic_bound_reference(duration=2.0))
     qr.initialize(PLAN_DURATION)
     cfg = hp.HKDConfig(plan_duration=PLAN_DURATION, n_steps_max=N_STEPS)
     rt = HKDMPCRuntime(qr, cfg, SolverOptions(), device=DEVICE,
                        dtype=torch.float64)
-    x, lines = x0, []
+    x, lines, steps = x0, [], []
     for i in range(6):
-        if i == 0:
-            rt.initialize(x)
-        else:
-            rt.update(x)
+        tape = rt.initialize(x) if i == 0 else rt.update(x)
+        steps.append((x, tape))
         ok = bool(rt.result.success)
         lines.append(f"{'init' if i == 0 else f'update {i}'} "
                      f"{rt.last_solve_ms:.2f} ms success={ok}")
@@ -849,6 +881,7 @@ def phase_runtime(label, x0):
         x = rt.result.Xbar[j]
     print("[5] runtime B=1 f64: " + "; ".join(lines) + f" [{label}]",
           flush=True)
+    return steps
 
 
 # Phase 6: the WB and SRB model layer at the `mhpc` config's production
@@ -2929,6 +2962,247 @@ def phase_options(label, models, mhpc):
     return joint
 
 
+# Phase 13: the JAX package's last HKD surface (the settings loaders, the
+# AD partials switch) and config 5's arcdog half
+HKD_AD_ENV = "CAFEMPC_HKD_AD_PARTIALS"
+AD_TOL = 1e-12          # 13b: AD against closed-form A, B, f64, normalized
+N_AD_TIMED = 3          # 13b: timed solves a turn
+RT_SETTINGS_TOL = 1e-10  # 13c: commands against phase 5's, normalized
+N_RT_SETTINGS = 3       # 13c: updates after the initialize
+ARCDOG_CHUNK = 64       # 13d: scenarios a chunk
+ARCDOG_CHAIN = 2        # 13d: plans a scenario
+
+
+def hkd_settings_files(root):
+    """(constraint_params.info, ddp_setting.info) of root/HKDMPC/settings."""
+    d = os.path.join(root, "HKDMPC", "settings")
+    return (os.path.join(d, "constraint_params.info"),
+            os.path.join(d, "ddp_setting.info"))
+
+
+def phase_settings_bench(label, root, fused):
+    """13a: phase 3's bench default built as the JAX bench builds it
+    (bench.py:58-84): the HKDConfig by `load_hkd_constraint_params`, the
+    options by `load_solver_options` cut to 2 AL x 1 DDP, the penalties by
+    `pen_to_device`, from the stand-in files under `root`; timed solves
+    through all four kernels, then against phase 3's solve: success flags
+    and iteration counts per scenario equal, cost within COST_RTOL."""
+    cp, ddp = hkd_settings_files(root)
+    cfg = hp.load_hkd_constraint_params(cp, hp.HKDConfig(
+        plan_duration=PLAN_DURATION, n_steps_max=N_STEPS))
+    opts = dataclasses.replace(load_solver_options(ddp), max_AL_iter=2,
+                               max_DDP_iter=1)
+    args, meta = bench_problem(torch.float32, cfg, pen_to_device=True)
+    res, cost, success, _, per_solve = phase_solve(
+        label, "13a", "from the settings files", args, meta, fused_hooks(),
+        KERNELS, opts=opts)
+    same, dc = same_solves((res, cost, success), fused)
+    print(f"[13a] settings {os.path.dirname(cp)} (stand-in: the in-code "
+          f"defaults written by write_synthetic_hkd_settings): against "
+          f"phase 3's solve success flags and iteration counts equal per "
+          f"scenario {same}, cost rel diff {dc:.3e} (tol {COST_RTOL:g}); "
+          f"launches per solve {per_solve} [{label}]", flush=True)
+    if not (same and dc <= COST_RTOL):
+        fail("13a: the solve from the settings files disagrees with phase "
+             "3's")
+    return per_solve
+
+
+def first_lq_operands(args):
+    """The operands of the first dynamics-partials call of 3b's solve
+    (states, controls, dt, contacts), from one solve."""
+    fns = hp.make_hkd_fns()
+    seen = []
+
+    def dyn_partials(x, u, sd):
+        if not seen:
+            seen.append((x.clone(), u.clone(), sd.dt.clone(),
+                         sd.contact.clone()))
+        return fns.dyn_partials(x, u, sd)
+    make_batched_solver(fns._replace(dyn_partials=dyn_partials), OPTS,
+                        **SOLVE_KW)(*args).cost.cpu()
+    return seen[0]
+
+
+def ad_turn(args, ad):
+    """One turn of 13b, CAFEMPC_HKD_AD_PARTIALS=ad while the functions are
+    made and the solves run: N_AD_TIMED timed solves after a warm-up, then
+    one solve profiled on the device with the counts set to 0 just before
+    and read just after; the turn's peak memory in GiB."""
+    with env_on(HKD_AD_ENV) if ad else contextlib.nullcontext():
+        solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **SOLVE_KW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, cost, success, ms = timed_solves(solve, args, N_AD_TIMED)
+        prof_out = profiled_solve(solve, args)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (res, cost, success), ms, prof_out[4], prof_out[5], peak
+
+
+def phase_ad_partials(label, unfused):
+    """13b: phase 3b's configuration with CAFEMPC_HKD_AD_PARTIALS=1 (the
+    dynamics partials by forward-mode AD) against the closed form, in
+    turns (closed, AD, AD, closed): every AD solve with the closed-form
+    solve's success flags and iteration counts per scenario and its cost
+    within COST_RTOL; A and B of both forms on 3b's first LQ operands in
+    f64 to AD_TOL.  Returns the AD solve's launches."""
+    if HKD_AD_ENV in os.environ:
+        fail(f"{HKD_AD_ENV} is set before 13b")
+    args, _ = bench_problem(torch.float32)
+    x, u, dt, c = (t.double() for t in first_lq_operands(args))
+    err = rel_errors(hkd.dynamics_partials_ad(x, u, dt, c),
+                     hkd.dynamics_partials(x, u, dt, c))
+    print(f"[13b] {HKD_AD_ENV}=1 partials against the closed form on 3b's "
+          f"first LQ operands ({tuple(x.shape[:-1])} knots), f64 on the "
+          f"card, normalized: A {err[0]:.3e}, B {err[1]:.3e} (tol "
+          f"{AD_TOL:g}) [{label}]", flush=True)
+    if not max(err) <= AD_TOL:
+        fail(f"13b: the AD partials disagree with the closed form: {err}")
+    turns = [(ad, ad_turn(args, ad)) for ad in (False, True, True, False)]
+    ref = turns[0][1][0]
+    for ad, (solve, ms, counts, prof, peak) in turns:
+        same, dc = same_solves(solve, ref)
+        print(f"[13b] turn AD={int(ad)}, hkd B={B} f32 without the fused LQ "
+              f"and trial: median {statistics.median(ms):.2f} ms per "
+              f"batched solve (each: {', '.join(f'{m:.2f}' for m in ms)}); "
+              f"success {int(solve[2].sum())}/{B}; against the first "
+              f"closed-form turn success flags and iteration counts equal "
+              f"{same}, cost rel diff {dc:.3e}; against 3b's "
+              f"{same_solves(solve, unfused)[0]}; launches in the profiled "
+              f"solve {counts}; "
+              + profile_text(prof, "the solve (device only)")
+              + f"; peak device memory {peak:.2f} GiB [{label}]", flush=True)
+        if not (same and dc <= COST_RTOL and bool(solve[2].all())):
+            fail(f"13b: the AD={int(ad)} solve disagrees with the "
+                 "closed-form solve or failed a scenario")
+        if not all(counts[k] for k in PATH_KERNELS):
+            fail(f"13b: the solve launched no sweep or linroll: {counts}")
+    if HKD_AD_ENV in os.environ:
+        fail(f"{HKD_AD_ENV} is still set after 13b")
+    return turns[1][1][2]
+
+
+def phase_runtime_settings(label, root, steps):
+    """13c: HKDMPCRuntime built with no device argument from 13a's files
+    at phase 5's plan, initialize + N_RT_SETTINGS updates on phase 5's
+    states: every solve on the card, commands within RT_SETTINGS_TOL of
+    phase 5's."""
+    cp, ddp = hkd_settings_files(root)
+    cfg = hp.load_hkd_constraint_params(cp, hp.HKDConfig(
+        plan_duration=PLAN_DURATION, n_steps_max=N_STEPS))
+    qr = QuadReference(synthetic_bound_reference(duration=2.0))
+    qr.initialize(PLAN_DURATION)
+    rt = HKDMPCRuntime(qr, cfg, load_solver_options(ddp))
+    devices = set()
+    for name in ("solve_init", "solve_rt"):
+        solve = getattr(rt, name)
+        setattr(rt, name, lambda plan, pen, *b, _s=solve: devices.update(
+            t.device.type for t in (plan.step.dt, pen.reb_delta, *b))
+            or _s(plan, pen, *b))
+    reset_counts()
+    lines, worst = [], 0.0
+    for i, (x, want) in enumerate(steps[:N_RT_SETTINGS + 1]):
+        got = rt.initialize(x) if i == 0 else rt.update(x)
+        err = max(float(np.abs(np.asarray(getattr(got, f), float)
+                                - np.asarray(getattr(want, f), float)).max()
+                        / max(np.abs(np.asarray(getattr(want, f),
+                                                float)).max(), 1e-30))
+                  for f in ("times", "controls", "des_body_state",
+                            "feedback", "contacts", "status_times",
+                            "foot_placements"))
+        worst = max(worst, err)
+        t = rt.timing
+        lines.append(f"{'init' if i == 0 else f'update {i}'} build "
+                     f"{t['build_ms']:.1f} + solve {t['solve_ms']:.1f} + "
+                     f"fetch {t['fetch_ms']:.1f} ms, command rel err "
+                     f"{err:.3e}")
+    counts = read_counts()
+    print(f"[13c] HKDMPCRuntime(qr, cfg, opts) from the settings files, no "
+          f"device argument: device {rt.device!r}, solves' tensors on "
+          f"{sorted(devices)}; " + "; ".join(lines) + f"; kernel launches "
+          f"{counts} (tol {RT_SETTINGS_TOL:g} against phase 5's commands) "
+          f"[{label}]", flush=True)
+    if devices != {torch.device(DEVICE).type}:
+        fail(f"13c: the runtime's solves ran on {devices}")
+    if not worst <= RT_SETTINGS_TOL:
+        fail(f"13c: the runtime's commands differ from phase 5's: "
+             f"{worst:.3e}")
+    if not all(counts[k] for k in PATH_KERNELS):
+        fail(f"13c: the runtime launched no sweep or linroll: {counts}")
+
+
+def phase_arcdog(label, tmp):
+    """13d: the arcdog half of the `mhpc` sweep (the tool's --arcdog-urdf
+    path: `arcdog_models`, `arcdog_quad_ref`, `mhpc_chain`,
+    `run_case_chain`, one solver for the robot), given the synthetic
+    quadruped's URDF as a stand-in for the arcdog's: both ARCDOG_GAITS
+    generated on the card, chains of ARCDOG_CHAIN plans, chunks of
+    ARCDOG_CHUNK, 11a's keywords; every cost and propagated state finite.
+    Returns the launches of the last gait's timed chunk per solve."""
+    f32 = torch.float32
+    urdf = synthetic_robot.write_synthetic_quadruped_urdf(
+        os.path.join(tmp, "arcdog_standin"))
+    models = ss.arcdog_models(urdf, DEVICE)
+    cfg, opts, settings = ss.mhpc_settings()
+    log, states, seen = [], [], set()
+    solve = recording(make_batched_solver(
+        mp.make_mhpc_fns_segmented(cfg, models[f32]), opts, **ss.MHPC_KW),
+        log)
+    rng = np.random.default_rng(SEED)
+    for gait in ss.ARCDOG_GAITS:
+        t0 = time.perf_counter()
+        qr = ss.arcdog_quad_ref(gait, ss.MHPC_WINDOW, models[torch.float64])
+        gen_s = time.perf_counter() - t0
+        steps, props = ss.mhpc_chain(qr, cfg, models[f32], DEVICE, f32,
+                                     ARCDOG_CHAIN)
+        kept = [lambda x, U, p=p: states.append(p(x, U)) or states[-1]
+                for p in props]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = ss.run_case_chain(solve, None, steps,
+                              ARCDOG_CHUNK * ARCDOG_CHAIN, ARCDOG_CHUNK,
+                              rng, f32, kept, seen_bs=seen,
+                              on_timed=reset_counts)
+        launches = read_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_solve = {k: v / (r["timed_solves"] // ARCDOG_CHUNK)
+                     for k, v in launches.items()}
+        print(f"[13d] arcdog/{gait} (STAND-IN: the synthetic quadruped's "
+              f"URDF given as --arcdog-urdf, the arcdog's is not in the "
+              f"repository; gait generated in memory on the card in "
+              f"{gen_s:.1f} s with {ss.ARCDOG_GEN_KW}; {settings}), "
+              f"{ARCDOG_CHAIN} plans a scenario, chunk {ARCDOG_CHUNK}, f32, "
+              f"{r['n_scenarios']} scenarios in {wall:.1f} s: "
+              f"{sweep_text(r)}; kernel launches in the timed chunk "
+              f"{launches}, per batched solve {per_solve}; peak device "
+              f"memory {peak:.2f} GiB [{label}]", flush=True)
+        if not all(launches[k] for k in PATH_KERNELS):
+            fail(f"13d: the arcdog chain launched no sweep or linroll in "
+                 f"its timed chunk: {launches}")
+    finite = (all(bool(torch.isfinite(s.cost).all()) for s in log),
+              all(bool(torch.isfinite(x).all()) for x in states))
+    print(f"[13d] arcdog half: {len(log)} batched solves, costs finite "
+          f"{finite[0]}, {len(states)} propagated state batches finite "
+          f"{finite[1]} [{label}]", flush=True)
+    if not all(finite):
+        fail("13d: an arcdog chain gave a non-finite cost or state")
+    return per_solve
+
+
+def phase_hkd_surface(label, fused, unfused, steps5):
+    """Phase 13 (13a-13d); returns the launches per solve of 13a, 13b's AD
+    solve and 13d."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_synthetic_hkd_settings(tmp)
+        launches = {"13a": phase_settings_bench(label, root, fused)}
+        launches["13b"] = phase_ad_partials(label, unfused)
+        phase_runtime_settings(label, root, steps5)
+        launches["13d"] = phase_arcdog(label, tmp)
+    return launches
+
+
 def timed_phase(n, fn, label, *args):
     """fn(label, *args), printing its wall seconds as phase n's."""
     t0 = time.perf_counter()
@@ -2984,9 +3258,9 @@ def main():
     print(f"[t] phase 1 took {time.perf_counter() - t0:.1f} s [{label}]",
           flush=True)
     f32 = timed_phase(2, phase_kernels_all, label)
-    launches, unfused = timed_phase(3, phase_solves, label)
+    launches, unfused, fused = timed_phase(3, phase_solves, label)
     args, _ = bench_problem(torch.float64)
-    timed_phase(5, phase_runtime, label, args[2][0].cpu().numpy())
+    steps5 = timed_phase(5, phase_runtime, label, args[2][0].cpu().numpy())
     timed_phase(6, phase_models, label)
     models = mhpc_models()
     mhpc = timed_phase(7, phase_mhpc_all, label, models)
@@ -2996,6 +3270,7 @@ def main():
                      trajopt)
     chain = timed_phase(11, phase_sweep, label, models, b1, unfused)
     joint = timed_phase(12, phase_options, label, models, mhpc)
+    timed_phase(13, phase_hkd_surface, label, fused, unfused, steps5)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line

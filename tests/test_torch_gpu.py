@@ -3,7 +3,7 @@ HKD solve through the kernels against the same solve through the twins;
 small HKD solves under the JAX package's default configuration and the
 solver's other plain-PyTorch stages on the card against the CPU;
 the whole-body and SRB model layer (the closed-form-bundle partials
-included) on the card against the CPU; the MHPC cascade's WB functions on
+included) and the HKD model's AD partials on the card against the CPU; the MHPC cascade's WB functions on
 the card against the CPU, small MHPC solves (segmented and joint mode)
 through the sweep and linroll kernels against the same solves through
 their twins, and a small HKD runtime served over an in-memory transport
@@ -452,6 +452,68 @@ def test_srb_partials_on_card_match_cpu(cuda, dtype, tol):
                     _srb_partials("cpu", torch.float64, d)):
         assert g.device.type == "cuda" and g.dtype == dtype
         assert _rel_err(g.cpu().double(), w) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_hkd_ad_partials_on_card_match_cpu(cuda, dtype, tol):
+    """`dynamics_partials_ad` and `reset_map_partial_ad` (the
+    CAFEMPC_HKD_AD_PARTIALS=1 path) on [4, 16] knots against [16] plan
+    data on the card, against the same knots in f64 on the CPU and against
+    the closed forms on the card."""
+    r = np.random.default_rng(3)
+    x = r.uniform(-1.0, 1.0, (4, 16, 24))
+    x[..., 1] = r.uniform(-0.6, 0.6, (4, 16))
+    u = r.uniform(-10.0, 10.0, (4, 16, 24))
+    dt = r.uniform(0.005, 0.02, 16)
+    c = (r.uniform(size=(16, 4)) > 0.5).astype(float)
+    cn = (r.uniform(size=(16, 4)) > 0.5).astype(float)
+
+    def run(device, dt_, fn_dyn, fn_reset):
+        a = [torch.as_tensor(v, device=device, dtype=dt_)
+             for v in (x, u, dt, c, cn)]
+        return (*fn_dyn(*a[:4]), fn_reset(a[0], a[3], a[4]))
+    got = run(cuda, dtype, hkd.dynamics_partials_ad, hkd.reset_map_partial_ad)
+    want = run("cpu", torch.float64, hkd.dynamics_partials_ad,
+               hkd.reset_map_partial_ad)
+    closed = run(cuda, dtype, hkd.dynamics_partials, hkd.reset_map_partial)
+    for g, w, cf in zip(got, want, closed):
+        assert g.device.type == "cuda" and g.dtype == dtype
+        assert g.shape == (4, 16, 24, 24)
+        assert _rel_err(g.cpu().double(), w) < tol
+        assert _rel_err(g, cf) < tol
+
+
+@pytest.mark.gpu
+def test_hkd_runtime_runs_on_the_card_by_default(cuda):
+    """`HKDMPCRuntime` without a device solves on the card."""
+    from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    rt = HKDMPCRuntime(qr, hp.HKDConfig(plan_duration=0.3, n_steps_max=40),
+                       SolverOptions(max_AL_iter=1, max_DDP_iter=1))
+    seen = []
+    solve = rt.solve_init
+    rt.solve_init = lambda plan, pen, *b: seen.append(
+        [t.device.type for t in (plan.step.dt, pen.reb_delta, *b)]) \
+        or solve(plan, pen, *b)
+    before = sw.sweep.launches
+    tape = rt.initialize(_standing(qr))
+    assert seen == [["cuda"] * 5]
+    assert sw.sweep.launches > before
+    assert bool(rt.result.success) and np.isfinite(tape.controls).all()
+
+
+def _standing(qr):
+    body = np.zeros(12)
+    body[5] = 0.2486
+    t = torch.float64
+    qd = hkd.compute_hkd_state(
+        torch.tensor(body[0:3], dtype=t), torch.tensor(body[3:6], dtype=t),
+        torch.tensor([0.0, -0.8, 1.6] * 4, dtype=t),
+        torch.as_tensor(np.asarray(qr.contact_at_t(0.0), float), dtype=t))
+    return np.concatenate([body, qd.numpy()])
 
 
 @pytest.mark.gpu

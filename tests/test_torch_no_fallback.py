@@ -508,6 +508,38 @@ def test_scenario_sweep_defaults_to_cuda_and_refuses_without_it(
     assert seen == ["cpu", "cuda"]
 
 
+def test_hkd_runtime_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    """`HKDMPCRuntime` without a device runs on cuda; without a CUDA device
+    it refuses to start instead of running on the CPU, which it does only
+    when asked."""
+    from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(0.3)
+    cfg = hp.HKDConfig(plan_duration=0.3, n_steps_max=40)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            HKDMPCRuntime(qr, cfg, SolverOptions())
+    assert HKDMPCRuntime(qr, cfg, SolverOptions(), device="cpu").device \
+        == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert HKDMPCRuntime(qr, cfg, SolverOptions()).device == "cuda"
+
+
+def test_scenario_sweep_refuses_a_missing_arcdog_urdf(monkeypatch, tmp_path):
+    """`--arcdog-urdf` naming no file raises before any gait is made; the
+    arcdog cases are never dropped silently."""
+    from cafempc_tpu_torch.tools import scenario_sweep as ss
+    made = []
+    monkeypatch.setattr(ss, "gait_csv", lambda *a: made.append(a))
+    missing = str(tmp_path / "arcdog.urdf")
+    with pytest.raises(FileNotFoundError, match="arcdog"):
+        ss.main(["--out", str(tmp_path / "sweep.json"), "--device", "cpu",
+                 "--arcdog-urdf", missing])
+    with pytest.raises(FileNotFoundError):
+        ss.arcdog_models(str(tmp_path), "cpu")
+    assert made == []
+
+
 def test_loco_problem_defaults_to_cuda(mhpc_model, tmp_path):
     """`build_loco_problem` puts its plan on cuda unless asked for the CPU:
     without CUDA it raises instead of running on the CPU."""

@@ -1,5 +1,6 @@
 """Importing the port never loads jax, nor any module of the JAX package
-`cafempc_tpu` (the GPU machine has no jax)."""
+`cafempc_tpu` (the GPU machine has no jax), and neither does calling its
+HKD settings surface, AD partials and foot-Jacobian API."""
 import os
 import subprocess
 import sys
@@ -100,5 +101,43 @@ def test_import_leaves_jax_package_out(loaded_after, module):
 def test_chip_smoke_imports_leave_jax_out():
     proc = _run("import sys, chip_smoke\n"
                 + _REPORT.format(m="chip_smoke"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[1:] == ["False", "False"]
+
+
+# the HKD surface of the port, called in a fresh interpreter on the CPU
+_HKD_SURFACE = """
+import sys, tempfile, torch
+from cafempc_tpu_torch.models import hkd
+from cafempc_tpu_torch.problems import hkd_problem as hp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference, write_synthetic_hkd_settings)
+from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+from cafempc_tpu_torch.solver.options import load_solver_options
+x = torch.rand(3, 24, dtype=torch.float64)
+c = torch.ones(3, 4, dtype=torch.float64)
+hkd.dynamics_partials_ad(x, x, torch.full((3,), 0.01, dtype=x.dtype), c)
+hkd.reset_map_partial_ad(x, c, 1 - c)
+for leg in range(4):
+    hkd.foot_jacobian(x[:, 3:6], x[:, 0:3], x[:, 12:15], leg)
+    hkd.leg_fk_local(x[:, 12:15], leg)
+with tempfile.TemporaryDirectory() as d:
+    s = write_synthetic_hkd_settings(d) + "/HKDMPC/settings/"
+    cfg = hp.load_hkd_constraint_params(s + "constraint_params.info",
+                                        hp.HKDConfig(plan_duration=0.3,
+                                                     n_steps_max=40))
+    opts = load_solver_options(s + "ddp_setting.info")
+qr = QuadReference(synthetic_bound_reference(duration=1.0))
+qr.initialize(0.3)
+pen = hp.build_hkd_plan(qr, cfg)[1]
+hp.pen_to_device(pen, torch.float64, "cpu")
+hp._facets(device="cpu")
+HKDMPCRuntime(qr, cfg, opts, device="cpu")
+"""
+
+
+def test_hkd_surface_calls_leave_jax_out():
+    proc = _run(_HKD_SURFACE + _REPORT.format(m="hkd_surface"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[1:] == ["False", "False"]
