@@ -28,6 +28,13 @@ residual's direction Jacobians by the closed-form FK derivative bundle
 (`cf_bundle`, ancestor cross-product rules) and its one jvp along v.  The
 partial functions take the switch as `use_cf`; None reads the variable at
 the call, as the JAX module reads it when it traces.
+
+Spans (`utils/tracing.py`, host only): `wb.partials` around
+`contact_kkt_dynamics_partials_lane`, `wb.impulse_partials` around
+`impulse_dynamics_partials_lane`, and inside both `wb.kin` (FK and its jvp,
+or the CF bundle), `wb.kkt_solve` (`_kkt_schur_solve_lane`),
+`wb.directions` (`jac_lane`, or the CF tangents) and `wb.tail` (the
+factored-KKT assembly).
 """
 import functools
 import os
@@ -38,6 +45,7 @@ from torch.func import jvp
 
 from cafempc_tpu_torch.models import rbda, wbm
 from cafempc_tpu_torch.models.rbda import _mv
+from cafempc_tpu_torch.utils import tracing
 
 NQ = 18
 
@@ -365,19 +373,33 @@ def contact_kkt_dynamics_partials_lane(m, q, v, tau, contact, bg_alpha,
 
     Returns (dqdd_dq, dqdd_dv, dqdd_dtau, dlam_dq, dlam_dv, dlam_dtau),
     each [K, nd | 12, nd]."""
+    with tracing.span("wb.partials"):
+        return _contact_partials(m, q, v, tau, contact, bg_alpha, damping,
+                                 use_cf_env() if use_cf is None else use_cf)
+
+
+def _contact_partials(m, q, v, tau, contact, bg_alpha, damping, use_cf):
     cmask3, Sdiag = rbda._masks(contact, damping)
-    if use_cf_env() if use_cf is None else use_cf:
-        cf, td = jvp(functools.partial(cf_bundle, m), (q,), (v,))
-        M, h, J, _, gamma_raw = _cf_primal(m, cf, td, v, bg_alpha)
-        Jm = J * cmask3[..., None]
+    if use_cf:
+        with tracing.span("wb.kin"):
+            cf, td = jvp(functools.partial(cf_bundle, m), (q,), (v,))
+            M, h, J, _, gamma_raw = _cf_primal(m, cf, td, v, bg_alpha)
+            Jm = J * cmask3[..., None]
+        with tracing.span("wb.kkt_solve"):
+            sol, b = _kkt_schur_solve_lane(
+                M, Jm, Sdiag, (tau - h)[..., None],
+                -(gamma_raw * cmask3)[..., None])
+        with tracing.span("wb.directions"):
+            dG = _cf_tangents(m, cf, td, v, sol[..., 0], b[..., 0], cmask3,
+                              bg_alpha)
+        with tracing.span("wb.tail"):
+            return _kkt_partials_tail(M, Jm, Sdiag, cmask3, *dG)
+    with tracing.span("wb.kin"):
+        Jw, Jv, Iw, Jm, h, gamma_m = _dyn_terms(m, q, v, cmask3, bg_alpha)
+        M = rbda._mass_from_jacobians(m, Jw, Jv, Iw)
+    with tracing.span("wb.kkt_solve"):
         sol, b = _kkt_schur_solve_lane(M, Jm, Sdiag, (tau - h)[..., None],
-                                       -(gamma_raw * cmask3)[..., None])
-        return _kkt_partials_tail(M, Jm, Sdiag, cmask3, *_cf_tangents(
-            m, cf, td, v, sol[..., 0], b[..., 0], cmask3, bg_alpha))
-    Jw, Jv, Iw, Jm, h, gamma_m = _dyn_terms(m, q, v, cmask3, bg_alpha)
-    M = rbda._mass_from_jacobians(m, Jw, Jv, Iw)
-    sol, b = _kkt_schur_solve_lane(M, Jm, Sdiag, (tau - h)[..., None],
-                                   -gamma_m[..., None])
+                                       -gamma_m[..., None])
     qdd, z_l = sol[..., 0], b[..., 0]
 
     def resid_q(q_):
@@ -391,8 +413,10 @@ def contact_kkt_dynamics_partials_lane(m, q, v, tau, contact, bg_alpha,
         _, _, _, _, h_, g_ = _dyn_terms(m, q, v_, cmask3, bg_alpha)
         return torch.cat([h_, g_], -1)
 
-    return _kkt_partials_tail(M, Jm, Sdiag, cmask3,
-                              jac_lane(resid_q, q), jac_lane(resid_v, v))
+    with tracing.span("wb.directions"):
+        dG = jac_lane(resid_q, q), jac_lane(resid_v, v)
+    with tracing.span("wb.tail"):
+        return _kkt_partials_tail(M, Jm, Sdiag, cmask3, *dG)
 
 
 def impulse_dynamics_lane(m, q, v, impact_mask, damping=1e-12):
@@ -416,25 +440,38 @@ def impulse_dynamics_partials_lane(m, q, v, impact_mask, damping=1e-12,
     factored KKT (rhs = M).  use_cf: the q-directions from the closed-form
     bundle (None: CAFEMPC_WB_CF).  Returns (dvpost_dq, dvpost_dv), each
     [K, nd, nd]."""
+    with tracing.span("wb.impulse_partials"):
+        return _impulse_partials(m, q, v, impact_mask, damping,
+                                 use_cf_env() if use_cf is None else use_cf)
+
+
+def _impulse_partials(m, q, v, impact_mask, damping, use_cf):
     cmask3, Sdiag = rbda._masks(impact_mask, damping)
-    if use_cf_env() if use_cf is None else use_cf:
-        cf = cf_bundle(m, q)
-        M = _mass_from_bundle(m, cf)
-        Jm = cf.J.flatten(-3, -2) * cmask3[..., None]
-        sol, b = _kkt_schur_solve_lane(M, Jm, Sdiag,
-                                       _mv_from_bundle(m, cf, v)[..., None],
-                                       torch.zeros_like(Sdiag)[..., None])
+    if use_cf:
+        with tracing.span("wb.kin"):
+            cf = cf_bundle(m, q)
+            M = _mass_from_bundle(m, cf)
+            Jm = cf.J.flatten(-3, -2) * cmask3[..., None]
+        with tracing.span("wb.kkt_solve"):
+            sol, b = _kkt_schur_solve_lane(
+                M, Jm, Sdiag, _mv_from_bundle(m, cf, v)[..., None],
+                torch.zeros_like(Sdiag)[..., None])
         v_post, z_l = sol[..., 0], b[..., 0]
-        dJm = cf.dJ.flatten(-3, -2) * cmask3[..., None, :, None]
-        top = _cf_dMv(m, cf, v_post - v) + _mv(dJm.mT, z_l[..., None, :])
-        dG_dq = torch.cat([top, _mv(dJm, v_post[..., None, :])], -1).mT
-        return rbda._impulse_partials_tail(M, Jm, Sdiag, dG_dq)
-    Jw, Jv, Iw, J = _kin(m, q)
-    M = rbda._mass_from_jacobians(m, Jw, Jv, Iw)
-    Jm = J * cmask3[..., None]
-    sol, b = _kkt_schur_solve_lane(M, Jm, Sdiag,
-                                   _per_body_mv(m, Jw, Jv, Iw, v)[..., None],
-                                   torch.zeros_like(Sdiag)[..., None])
+        with tracing.span("wb.directions"):
+            dJm = cf.dJ.flatten(-3, -2) * cmask3[..., None, :, None]
+            top = _cf_dMv(m, cf, v_post - v) + _mv(dJm.mT,
+                                                    z_l[..., None, :])
+            dG_dq = torch.cat([top, _mv(dJm, v_post[..., None, :])], -1).mT
+        with tracing.span("wb.tail"):
+            return rbda._impulse_partials_tail(M, Jm, Sdiag, dG_dq)
+    with tracing.span("wb.kin"):
+        Jw, Jv, Iw, J = _kin(m, q)
+        M = rbda._mass_from_jacobians(m, Jw, Jv, Iw)
+        Jm = J * cmask3[..., None]
+    with tracing.span("wb.kkt_solve"):
+        sol, b = _kkt_schur_solve_lane(
+            M, Jm, Sdiag, _per_body_mv(m, Jw, Jv, Iw, v)[..., None],
+            torch.zeros_like(Sdiag)[..., None])
     v_post, z_l = sol[..., 0], b[..., 0]
     dv = v_post - v
 
@@ -444,7 +481,10 @@ def impulse_dynamics_partials_lane(m, q, v, impact_mask, damping=1e-12,
         top = _per_body_mv(m, Jw_, Jv_, Iw_, dv) + _mv(Jm_.mT, z_l)
         return torch.cat([top, _mv(Jm_, v_post)], -1)
 
-    return rbda._impulse_partials_tail(M, Jm, Sdiag, jac_lane(resid_q, q))
+    with tracing.span("wb.directions"):
+        dG_dq = jac_lane(resid_q, q)
+    with tracing.span("wb.tail"):
+        return rbda._impulse_partials_tail(M, Jm, Sdiag, dG_dq)
 
 
 # ------------------------------------------------------------------

@@ -30,9 +30,13 @@ scan linear rollout); this runtime names its own, gathered resets
 (`max_resets`), the sequential line search and the sweep and
 linear-rollout kernels (`fused_riccati=True, parallel_line_search=False`),
 which the JAX package pins as the same solve.
+
+Spans and `timing` as in `runtime/mpc.py`: each `initialize` and `update`
+a root span, with `runtime.plan`, `runtime.warm_start` (with the optional
+foot handoff), `runtime.upload`, `runtime.solve`, `runtime.fetch` and
+`runtime.tape` (solver-info publish) under it.
 """
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -43,11 +47,13 @@ from cafempc_tpu_torch.models import wbm
 from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
 from cafempc_tpu_torch.runtime.mpc import (intermtraj_message,
-                                           serve_newest, solver_info_message)
+                                           serve_newest, solver_info_message,
+                                           stage_timing)
 from cafempc_tpu_torch.runtime.warm_start import time_aligned_warm_start
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
 from cafempc_tpu_torch.solver.plan import host_plan_to_device
+from cafempc_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -130,10 +136,7 @@ class MHPCRuntime:
         # timing: the last step's host plan build (with the warm start and
         # the copy to the device), solve and fetch
         self.last_solve_ms = 0.0
-        self.avg_solve_ms = 0.0
-        self.max_solve_ms = 0.0
         self.timing = {}
-        self._n_solves = 0
         # serve(): solves run, states not yet solved, (endpoint, channel)
         # pairs subscribed
         self._n_served = 0
@@ -145,69 +148,70 @@ class MHPCRuntime:
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize()
 
-    def _solve(self, solve, t_build, plan_np, pen_np, x0, Xbar0, Ubar0):
-        """One B=1 solve of host inputs; the solve time covers the device
-        solve and the fetch of its result."""
-        plan = host_plan_to_device(plan_np, self.device, self.dtype)
-        pen = host_plan_to_device(pen_np, self.device, self.dtype)
-        pen = type(pen)(*[a[None] for a in pen])
-        batch = [from_numpy(np.asarray(a)[None], self.device, self.dtype)
-                 for a in (x0, Xbar0, Ubar0)]
-        self._sync()
-        t0 = time.perf_counter()
-        s = solve(plan, pen, *batch)
-        self._sync()
-        t1 = time.perf_counter()
-        tr = s.traj
-        res = {k: to_numpy(getattr(tr, k)[0]) for k in _KEPT}
-        res.update({k: to_numpy(getattr(s, k)[0]) for k in (
-            "cost", "feas", "max_pconstr", "max_tconstr", "success")})
-        res["info"] = type(s.info)(*[to_numpy(a[0]) for a in s.info])
-        t2 = time.perf_counter()
+    def _solve(self, solve, step, plan_np, pen_np, x0, Xbar0, Ubar0):
+        """One B=1 solve of host inputs under the root span `step`; the
+        solve time covers the device solve and the fetch of its result."""
+        with tracing.stage("runtime.upload") as upload:
+            plan = host_plan_to_device(plan_np, self.device, self.dtype)
+            pen = host_plan_to_device(pen_np, self.device, self.dtype)
+            pen = type(pen)(*[a[None] for a in pen])
+            batch = [from_numpy(np.asarray(a)[None], self.device, self.dtype)
+                     for a in (x0, Xbar0, Ubar0)]
+            self._sync()
+        with tracing.stage("runtime.solve") as solved:
+            s = solve(plan, pen, *batch)
+            self._sync()
+        with tracing.stage("runtime.fetch") as fetch:
+            tr = s.traj
+            res = {k: to_numpy(getattr(tr, k)[0]) for k in _KEPT}
+            res.update({k: to_numpy(getattr(s, k)[0]) for k in (
+                "cost", "feas", "max_pconstr", "max_tconstr", "success")})
+            res["info"] = type(s.info)(*[to_numpy(a[0]) for a in s.info])
         self.result = res
         self.guess = (Xbar0, Ubar0)
-        self.timing = dict(build_ms=(t0 - t_build) * 1e3,
-                           solve_ms=(t1 - t0) * 1e3, fetch_ms=(t2 - t1) * 1e3)
-        self._record_solve_time(t0)
-
-    def _record_solve_time(self, t0):
-        self.last_solve_ms = (time.perf_counter() - t0) * 1e3
-        self._n_solves += 1
-        self.avg_solve_ms += (self.last_solve_ms - self.avg_solve_ms) \
-            / self._n_solves
-        self.max_solve_ms = max(self.max_solve_ms, self.last_solve_ms)
+        self.timing = stage_timing(step, upload, solved, fetch)
+        self.last_solve_ms = (fetch.end_ns - solved.start_ns) / 1e6
 
     # ---------------- MPC steps --------------------------------------
     def initialize(self, x0):
-        t_build = time.perf_counter()
-        plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(self.qr,
-                                                                 self.cfg)
-        self._solve(self.solve_init, t_build, plan_np, pen_np, x0, Xbar0,
-                    Ubar0)
-        self.plan_np, self.meta = plan_np, meta
-        self._publish_solver_info()
-        return self.command_tape()
+        with tracing.stage("runtime.initialize") as step:
+            with tracing.stage("runtime.plan"):
+                plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(
+                    self.qr, self.cfg)
+            self._solve(self.solve_init, step, plan_np, pen_np, x0, Xbar0,
+                        Ubar0)
+            self.plan_np, self.meta = plan_np, meta
+            return self._tape()
 
     def update(self, x_meas, dt=None):
         """One re-solve at the measured state; dt is the elapsed MPC time
         since the previous solve (default dt_mpc)."""
-        t_build = time.perf_counter()
-        dt = self.cfg.dt_mpc if dt is None else dt
-        self.qr.step(dt)
-        self.mpc_time += dt
-        plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(self.qr,
-                                                                 self.cfg)
-        Xb, Ub = time_aligned_warm_start(
-            self.plan_np.knot, self.mpc_time - dt, self.result["Xbar"],
-            self.result["Ubar"], plan_np.knot, self.mpc_time, Xbar0, Ubar0)
-        if self.foot_handoff and meta["srb_horizon"] > 0:
-            # state entering the WB->SRB model-switch reset (warm-started)
-            mp.apply_transition_foot_handoff(
-                plan_np, self.cfg, Xb[self.cfg.wb_block - 1], self.model)
-        self._solve(self.solve_rt, t_build, plan_np, pen_np, x_meas, Xb, Ub)
-        self.plan_np, self.meta = plan_np, meta
-        self._publish_solver_info()
-        return self.command_tape()
+        with tracing.stage("runtime.update") as step:
+            with tracing.stage("runtime.plan"):
+                dt = self.cfg.dt_mpc if dt is None else dt
+                self.qr.step(dt)
+                self.mpc_time += dt
+                plan_np, pen_np, Xbar0, Ubar0, meta = mp.build_mhpc_plan(
+                    self.qr, self.cfg)
+            with tracing.stage("runtime.warm_start"):
+                Xb, Ub = time_aligned_warm_start(
+                    self.plan_np.knot, self.mpc_time - dt,
+                    self.result["Xbar"], self.result["Ubar"], plan_np.knot,
+                    self.mpc_time, Xbar0, Ubar0)
+                if self.foot_handoff and meta["srb_horizon"] > 0:
+                    # state entering the WB->SRB model-switch reset
+                    # (warm-started)
+                    mp.apply_transition_foot_handoff(
+                        plan_np, self.cfg, Xb[self.cfg.wb_block - 1],
+                        self.model)
+            self._solve(self.solve_rt, step, plan_np, pen_np, x_meas, Xb, Ub)
+            self.plan_np, self.meta = plan_np, meta
+            return self._tape()
+
+    def _tape(self):
+        with tracing.stage("runtime.tape"):
+            self._publish_solver_info()
+            return self.command_tape()
 
     # ---------------- telemetry --------------------------------------
     def _intermtraj_callback(self, Xbar, Ubar, it):

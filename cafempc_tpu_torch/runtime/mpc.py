@@ -24,6 +24,12 @@ resets (`max_resets=MAX_RESETS`), the sequential line search and the sweep
 and linear-rollout kernels (`fused_riccati=True,
 parallel_line_search=False`), which the JAX package pins as the same solve
 (tests/test_hkd_solver.py).
+
+Each `initialize` and `update` is a root span (`utils/tracing.py`) whose id
+is the update's id, with the stages `runtime.plan` (`qr.step` and the
+plan build), `runtime.warm_start`, `runtime.upload`, `runtime.solve`,
+`runtime.fetch` and `runtime.tape` (foot placement, solver-info publish,
+command tape) under it; `timing` is computed from their host clocks.
 """
 import dataclasses
 import time
@@ -40,6 +46,7 @@ from cafempc_tpu_torch.runtime.warm_start import time_aligned_warm_start
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions
 from cafempc_tpu_torch.solver.plan import host_plan_to_device
+from cafempc_tpu_torch.utils import tracing
 
 
 # reset sites the solver gathers: a 1.0 s bound plan has 10 phase switches
@@ -95,10 +102,7 @@ class HKDMPCRuntime:
         # timing: the last step's host plan build (with the warm start and
         # the copy to the device), solve and fetch
         self.last_solve_ms = 0.0
-        self.avg_solve_ms = 0.0
-        self.max_solve_ms = 0.0
         self.timing = {}
-        self._n_solves = 0
         # serve(): solves run, states not yet solved, (endpoint, channel)
         # pairs subscribed
         self._n_served = 0
@@ -110,65 +114,63 @@ class HKDMPCRuntime:
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize()
 
-    def _solve(self, solve, t_build, plan_np, pen_np, x0, Xbar0, Ubar0):
-        """One B=1 solve of host inputs; the solve time covers the device
-        solve and the fetch of its result."""
-        plan = host_plan_to_device(plan_np, self.device, self.dtype)
-        pen = host_plan_to_device(pen_np, self.device, self.dtype)
-        pen = type(pen)(*[a[None] for a in pen])
-        batch = [from_numpy(np.asarray(a)[None], self.device, self.dtype)
-                 for a in (x0, Xbar0, Ubar0)]
-        self._sync()
-        t0 = time.perf_counter()
-        res = solve(plan, pen, *batch)
-        self._sync()
-        t1 = time.perf_counter()
-        res = to_numpy(res)
-        t2 = time.perf_counter()
-        self.result = type(res)(*[a[0] if isinstance(a, np.ndarray) else
-                                  type(a)(*[v[0] for v in a])
-                                  for a in res])
-        self.timing = dict(build_ms=(t0 - t_build) * 1e3,
-                           solve_ms=(t1 - t0) * 1e3, fetch_ms=(t2 - t1) * 1e3)
-        self._record_solve_time(t0)
-
-    def _record_solve_time(self, t0):
-        self.last_solve_ms = (time.perf_counter() - t0) * 1e3
-        self._n_solves += 1
-        self.avg_solve_ms += (self.last_solve_ms - self.avg_solve_ms) \
-            / self._n_solves
-        self.max_solve_ms = max(self.max_solve_ms, self.last_solve_ms)
+    def _solve(self, solve, step, plan_np, pen_np, x0, Xbar0, Ubar0):
+        """One B=1 solve of host inputs under the root span `step`; the
+        solve time covers the device solve and the fetch of its result."""
+        with tracing.stage("runtime.upload") as upload:
+            plan = host_plan_to_device(plan_np, self.device, self.dtype)
+            pen = host_plan_to_device(pen_np, self.device, self.dtype)
+            pen = type(pen)(*[a[None] for a in pen])
+            batch = [from_numpy(np.asarray(a)[None], self.device, self.dtype)
+                     for a in (x0, Xbar0, Ubar0)]
+            self._sync()
+        with tracing.stage("runtime.solve") as solved:
+            res = solve(plan, pen, *batch)
+            self._sync()
+        with tracing.stage("runtime.fetch") as fetch:
+            res = to_numpy(res)
+            self.result = type(res)(*[a[0] if isinstance(a, np.ndarray) else
+                                      type(a)(*[v[0] for v in a])
+                                      for a in res])
+        self.timing = stage_timing(step, upload, solved, fetch)
+        self.last_solve_ms = (fetch.end_ns - solved.start_ns) / 1e6
 
     # ---------------- MPC steps --------------------------------------
     def initialize(self, x0):
-        t_build = time.perf_counter()
-        plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(self.qr,
-                                                                self.cfg)
-        self._solve(self.solve_init, t_build, plan_np, pen_np, x0, Xbar0,
-                    Ubar0)
-        self.plan_np, self.meta = plan_np, meta
-        self._update_foot_placement()
-        self._publish_solver_info()
-        return self.command_tape()
+        with tracing.stage("runtime.initialize") as step:
+            with tracing.stage("runtime.plan"):
+                plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
+                    self.qr, self.cfg)
+            self._solve(self.solve_init, step, plan_np, pen_np, x0, Xbar0,
+                        Ubar0)
+            self.plan_np, self.meta = plan_np, meta
+            return self._tape()
 
     def update(self, x_meas, dt=None):
         """One MPC re-solve at the new measured state (HKDMPC.cpp:97-166);
         dt is the elapsed MPC time since the previous solve (default
         dt_mpc)."""
-        t_build = time.perf_counter()
-        dt = self.dt_mpc if dt is None else dt
-        self.qr.step(dt)
-        self.mpc_time += dt
-        plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(self.qr,
-                                                                self.cfg)
-        Xb, Ub = time_aligned_warm_start(
-            self.plan_np.knot, self.mpc_time - dt, self.result.Xbar,
-            self.result.Ubar, plan_np.knot, self.mpc_time, Xbar0, Ubar0)
-        self._solve(self.solve_rt, t_build, plan_np, pen_np, x_meas, Xb, Ub)
-        self.plan_np, self.meta = plan_np, meta
-        self._update_foot_placement()
-        self._publish_solver_info()
-        return self.command_tape()
+        with tracing.stage("runtime.update") as step:
+            with tracing.stage("runtime.plan"):
+                dt = self.dt_mpc if dt is None else dt
+                self.qr.step(dt)
+                self.mpc_time += dt
+                plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
+                    self.qr, self.cfg)
+            with tracing.stage("runtime.warm_start"):
+                Xb, Ub = time_aligned_warm_start(
+                    self.plan_np.knot, self.mpc_time - dt, self.result.Xbar,
+                    self.result.Ubar, plan_np.knot, self.mpc_time, Xbar0,
+                    Ubar0)
+            self._solve(self.solve_rt, step, plan_np, pen_np, x_meas, Xb, Ub)
+            self.plan_np, self.meta = plan_np, meta
+            return self._tape()
+
+    def _tape(self):
+        with tracing.stage("runtime.tape"):
+            self._update_foot_placement()
+            self._publish_solver_info()
+            return self.command_tape()
 
     # ---------------- telemetry --------------------------------------
     def _intermtraj_callback(self, Xbar, Ubar, it):
@@ -306,6 +308,14 @@ class HKDMPCRuntime:
             status_times=status,
             foot_placements=self.pf.reshape(12).copy(),
             solve_info=info)
+
+
+def stage_timing(step, upload, solved, fetch):
+    """The runtimes' `timing` (ms) from their stage spans: the host plan
+    build from the step's start to the end of the upload (the warm start
+    and the copy to the device included), the solve, the fetch."""
+    return dict(build_ms=(upload.end_ns - step.start_ns) / 1e6,
+                solve_ms=solved.ms, fetch_ms=fetch.ms)
 
 
 def intermtraj_message(Xbar, Ubar):

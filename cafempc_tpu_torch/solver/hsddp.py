@@ -36,6 +36,15 @@ Loop semantics follow the vmapped JAX program exactly: each `while` runs
 while ANY scenario's condition holds, and a scenario whose condition is
 false keeps its carry unchanged (`tree_where`), iteration counters
 included.  One host sync per loop test.
+
+Spans and counters (`utils/tracing.py`, off by default): `hsddp.solve`
+around a call, and inside it `hsddp.rollout` (the initial forward),
+`hsddp.outer`, `hsddp.inner`, `hsddp.lq`, `hsddp.sweep` (with its
+regularization retries), `hsddp.linroll`, `hsddp.line_search`,
+`hsddp.select` (each `tree_where`), `hsddp.al_update` and `hsddp.sync`
+(each host sync: every loop test, and each segment's reset-site fetch),
+which the `hsddp.sync` counter counts; the stages that launch device work
+carry CUDA events on the card.
 """
 from typing import Any, Callable, NamedTuple
 
@@ -47,6 +56,7 @@ from cafempc_tpu_torch.solver import penalty
 from cafempc_tpu_torch.solver.options import SolverOptions
 from cafempc_tpu_torch.solver.plan import KnotPlan, PenaltyParams, StepData
 from cafempc_tpu_torch.solver.scan import associative_scan
+from cafempc_tpu_torch.utils import tracing
 
 
 class ProblemFns(NamedTuple):
@@ -139,16 +149,25 @@ class SolveResult(NamedTuple):
 
 def tree_where(mask, new, old):
     """Per-scenario select over matching trees (NamedTuples / tuples) of
-    [B, ...] tensors: scenario b takes `new` where mask[b], else `old`."""
+    [B, ...] tensors: scenario b takes `new` where mask[b], else `old`
+    (one `hsddp.select` span)."""
+    with tracing.span("hsddp.select", device=mask):
+        return _select(mask, new, old)
+
+
+def _select(mask, new, old):
     if isinstance(new, torch.Tensor):
         return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
                            new, old)
-    vals = [tree_where(mask, a, b) for a, b in zip(new, old)]
+    vals = [_select(mask, a, b) for a, b in zip(new, old)]
     return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
 
 
 def _any(mask):
-    return bool(mask.any())
+    """Whether any scenario's flag is set: a host sync."""
+    tracing.count("hsddp.sync")
+    with tracing.span("hsddp.sync"):
+        return bool(mask.any())
 
 
 def init_traj(plan: KnotPlan, xs, us, ys, Xbar0, Ubar0):
@@ -303,7 +322,9 @@ def reset_sites(plan: KnotPlan, max_resets, fns):
     sites = []
     for i, (o, cnt, f) in enumerate(_segments(fns, plan.n_steps)):
         is_r = plan.step.is_reset[o:o + cnt]
-        idx = torch.nonzero(is_r > 0).flatten()
+        tracing.count("hsddp.sync")
+        with tracing.span("hsddp.sync"):
+            idx = torch.nonzero(is_r > 0).flatten()
         if idx.shape[0] > max_resets:
             raise ValueError(
                 f"segment {i} of the plan (steps {o}..{o + cnt - 1}) has "
@@ -1070,14 +1091,17 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         cost, maxp, maxt = cost_from_terms(plan, s.pen, s.cost_quad,
                                            s.con_g, s.con_h)
         feas = dyn_feas(tr.Defect)
-        if fused_lq is not None:
-            tr = fused_lq(plan, s.pen, tr, plain_ops=plain_ops)
-        else:
-            tr = lq_approx(plan, sites, s.pen, tr)
-        tr, reg, ok, dV1, dV2, reg_it = backward_sweep_regularized(
-            plan, tr, s.reg, alive)
+        with tracing.span("hsddp.lq", device=alive):
+            if fused_lq is not None:
+                tr = fused_lq(plan, s.pen, tr, plain_ops=plain_ops)
+            else:
+                tr = lq_approx(plan, sites, s.pen, tr)
+        with tracing.span("hsddp.sweep", device=alive):
+            tr, reg, ok, dV1, dV2, reg_it = backward_sweep_regularized(
+                plan, tr, s.reg, alive)
         if opts.MS:
-            tr, dV1, dV2 = linear_rollout(plan, tr, 1.0)
+            with tracing.span("hsddp.linroll", device=alive):
+                tr, dV1, dV2 = linear_rollout(plan, tr, 1.0)
         dV_abs = torch.abs(dV1 + 0.5 * dV2)
         rho = torch.where(
             feas > opts.dynamics_feas_thresh,
@@ -1089,9 +1113,10 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         terms_nom = (s.cost_quad, s.con_g, s.con_h)
         # the reference skips the line search on early termination
         # (MultiPhaseDDP.cpp:330-345); its results would be discarded
-        tr2, terms2, ls_ok, cost2, feas2, merit2, ls_it = ls_fn(
-            plan, sites, s.pen, tr, s.x0, merit, feas, rho, dV1, dV2, cost,
-            terms_nom, alive & ~early)
+        with tracing.span("hsddp.line_search", device=alive):
+            tr2, terms2, ls_ok, cost2, feas2, merit2, ls_it = ls_fn(
+                plan, sites, s.pen, tr, s.x0, merit, feas, rho, dV1, dV2,
+                cost, terms_nom, alive & ~early)
         ls_ok = ls_ok & (~early)
         tr2 = tree_where(ls_ok, update_nominal(tr2), tr2)
         tr2 = tree_where(early, tr, tr2)
@@ -1124,8 +1149,9 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         done = torch.zeros_like(alive)
         active = alive & (it < opts.max_DDP_iter)
         while _any(active):
-            s2, done2 = ddp_inner(plan, sites, s, active)
-            s = tree_where(active, s2, s)
+            with tracing.span("hsddp.inner"):
+                s2, done2 = ddp_inner(plan, sites, s, active)
+                s = tree_where(active, s2, s)
             done = torch.where(active, done2, done)
             it = it + active.to(torch.int32)
             active = alive & (it < opts.max_DDP_iter) & ~done
@@ -1141,21 +1167,26 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
 
         # AL / ReB parameter updates on the cached nominal constraint values
         pen = s.pen
-        if opts.AL_active:
-            lam, sig = penalty.al_update_params(
-                s.con_h, pen.al_lambda, pen.al_sigma, pen.al_active,
-                opts.tconstr_thresh, opts.update_penalty,
-                _per_lane(pen.al_sigma_max))
-            pen = pen._replace(al_lambda=lam, al_sigma=sig)
-        if opts.ReB_active:
-            dl, ew = penalty.reb_update_params(
-                s.con_g, pen.reb_delta, pen.reb_eps, pen.reb_active,
-                opts.pconstr_thresh, opts.update_relax, opts.update_ReB,
-                _per_lane(pen.reb_delta_min))
-            pen = pen._replace(reb_delta=dl, reb_eps=ew)
+        with tracing.span("hsddp.al_update"):
+            if opts.AL_active:
+                lam, sig = penalty.al_update_params(
+                    s.con_h, pen.al_lambda, pen.al_sigma, pen.al_active,
+                    opts.tconstr_thresh, opts.update_penalty,
+                    _per_lane(pen.al_sigma_max))
+                pen = pen._replace(al_lambda=lam, al_sigma=sig)
+            if opts.ReB_active:
+                dl, ew = penalty.reb_update_params(
+                    s.con_g, pen.reb_delta, pen.reb_eps, pen.reb_active,
+                    opts.pconstr_thresh, opts.update_relax, opts.update_ReB,
+                    _per_lane(pen.reb_delta_min))
+                pen = pen._replace(reb_delta=dl, reb_eps=ew)
         return s._replace(pen=pen, done=done)
 
     def solve(plan: KnotPlan, pen0: PenaltyParams, x0, Xbar0, Ubar0):
+        with tracing.span("hsddp.solve"):
+            return run(plan, pen0, x0, Xbar0, Ubar0)
+
+    def run(plan, pen0, x0, Xbar0, Ubar0):
         Bsz, xs = x0.shape
         us = Ubar0.shape[-1]
         ys = plan.step.y_ref.shape[-1]
@@ -1172,8 +1203,9 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
                           ineq_feas_buf=buf, n_entries=izero, iters=izero,
                           ls_iters=izero, reg_iters=izero)
         # initial rollout + nominal update (MultiPhaseDDP.cpp:238-261)
-        tr, (cq, g, h), cost, feas, maxp, maxt, _ = forward(
-            plan, sites, pen0, tr, x0, zero)
+        with tracing.span("hsddp.rollout", device=x0):
+            tr, (cq, g, h), cost, feas, maxp, maxt, _ = forward(
+                plan, sites, pen0, tr, x0, zero)
         tr = update_nominal(tr)
         s = SolverState(
             traj=tr, pen=pen0, x0=x0, cost=cost, merit=zero, merit_rho=zero,
@@ -1189,7 +1221,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         active = it < opts.max_AL_iter
         n_outer = 0
         while _any(active):
-            s = tree_where(active, outer_body(plan, sites, s, active), s)
+            with tracing.span("hsddp.outer"):
+                s = tree_where(active, outer_body(plan, sites, s, active), s)
             if iter_callback is not None:
                 iter_callback(s.traj.Xbar, s.traj.Ubar, n_outer)
             n_outer += 1

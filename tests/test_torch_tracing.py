@@ -1,0 +1,315 @@
+"""The port's tracer (`utils/tracing.py`) and the spans and counters of
+the solver, the whole-body linearization and the HKD runtime.
+
+CPU: B=2 f64 HKD solves of a 0.3 s plan, one through the `hkd` bench
+path (fused LQ and trial hooks) and one through the generic stages with
+gathered resets, both on the sweep and linroll twins, with the tracer
+off, then with it on: off, nothing is recorded; on, one `hsddp.solve`
+root a call with every stage under it; the `hsddp.sync` counter equals
+the host syncs counted by a monkeypatch; the answers are bit-identical.
+An `HKDMPCRuntime` update is one `runtime.update` root with its six
+stages in order, and its `timing` comes from their clocks.  Both WB
+partial functions (jvp and CF paths) nest their four stages.
+
+On the card (marked `gpu`, skipped without one): the device event pairs
+resolve to positive stream ms, and under a profile with CPU and CUDA
+activity the spans are `record_function` ranges holding their kernels.
+The file imports no jax:
+
+    python -m pytest --noconftest -q tests/test_torch_tracing.py
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from cafempc_tpu_torch.convert import from_numpy
+from cafempc_tpu_torch.models import hkd, synthetic_robot, wb_lane
+from cafempc_tpu_torch.parallel.mesh import broadcast_batch
+from cafempc_tpu_torch.problems import hkd_fused as hf
+from cafempc_tpu_torch.problems import hkd_problem as hp
+from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+from cafempc_tpu_torch.solver import hsddp
+from cafempc_tpu_torch.solver.options import SolverOptions
+from cafempc_tpu_torch.utils import tracing
+
+B = 2
+PLAN = dict(plan_duration=0.3, n_steps_max=40)
+OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=2)
+KW = dict(fused_riccati=True, parallel_line_search=False, max_resets=16,
+          reg_floor=1e-3)
+# every stage span of a solve on this path, and those with device events
+STAGES = {"hsddp.rollout", "hsddp.outer", "hsddp.inner", "hsddp.lq",
+          "hsddp.sweep", "hsddp.linroll", "hsddp.line_search",
+          "hsddp.select", "hsddp.al_update", "hsddp.sync"}
+DEVICE_STAGES = {"hsddp.rollout", "hsddp.lq", "hsddp.sweep",
+                 "hsddp.linroll", "hsddp.line_search", "hsddp.select"}
+RUNTIME_STAGES = ["runtime.plan", "runtime.warm_start", "runtime.upload",
+                  "runtime.solve", "runtime.fetch", "runtime.tape"]
+WB_STAGES = ["wb.kin", "wb.kkt_solve", "wb.directions", "wb.tail"]
+
+
+def _fresh():
+    tracing.disable()
+    tracing.reset()
+
+
+@pytest.fixture
+def tracer():
+    """The tracer, off and empty before and after the test."""
+    _fresh()
+    yield tracing
+    _fresh()
+
+
+def _qr():
+    qr = QuadReference(synthetic_bound_reference(duration=1.0))
+    qr.initialize(PLAN["plan_duration"])
+    return qr
+
+
+def _solve_args(device):
+    plan_np, pen_np, Xbar0, Ubar0, meta = hp.build_hkd_plan(
+        _qr(), hp.HKDConfig(**PLAN))
+    f64 = torch.float64
+    body = torch.zeros(12, dtype=f64)
+    body[5] = 0.2486
+    qd = hkd.compute_hkd_state(
+        body[0:3], body[3:6], torch.tensor([0.0, -0.8, 1.6] * 4, dtype=f64),
+        torch.tensor(meta["phases"][0][3], dtype=f64))
+    x0 = torch.cat([body, qd])[None] + 0.01 * torch.as_tensor(
+        np.random.default_rng(7).normal(size=(B, 24)))
+    plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
+                                         device, f64)
+    return (plan, broadcast_batch(pen, B), x0.to(device),
+            broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B))
+
+
+def _solver(hooks=True):
+    """The bench path's solver, or (hooks=False) the generic stages."""
+    if not hooks:
+        return hsddp.make_solver(hp.make_hkd_fns(), OPTS, **KW)
+    return hsddp.make_solver(hp.make_hkd_fns(), OPTS,
+                             fused_forward=hf.make_hkd_fused_forward(),
+                             fused_lq=hf.make_hkd_fused_lq(), **KW)
+
+
+def _under(spans, root_id):
+    return [s for s in spans if s.root == root_id and s.id != root_id]
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """Both solvers' solves with the tracer off, then with it on, the host
+    syncs counted by wrappers of `_any` and `reset_sites` (one fetch a
+    segment)."""
+    _fresh()
+    solvers = [_solver(True), _solver(False)]
+    args = _solve_args(torch.device("cpu"))
+    off = [solve(*args) for solve in solvers]
+    out = dict(off=off, off_spans=tracing.spans(),
+               off_counts=tracing.counts(),
+               off_span=tracing.span("hsddp.lq", device=args[2]),
+               off_count=tracing.count("hsddp.sync"))
+    syncs = []
+    real_any, real_sites = hsddp._any, hsddp.reset_sites
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hsddp, "_any",
+                   lambda m: syncs.append(1) or real_any(m))
+        mp.setattr(hsddp, "reset_sites", lambda *a: (
+            lambda s: syncs.extend([1] * len(s)) or s)(real_sites(*a)))
+        tracing.enable()
+        try:
+            on, per_call = [], []
+            for solve in solvers:
+                n0 = len(syncs)
+                on.append(solve(*args))
+                per_call.append(len(syncs) - n0)
+        finally:
+            tracing.disable()
+    out.update(on=on, syncs=per_call, spans=tracing.spans(),
+               counts=tracing.counts())
+    _fresh()
+    return out
+
+
+def _case_off(t):
+    assert t["off_spans"] == [] and t["off_counts"] == {}
+    assert t["off_span"] is tracing.NO_SPAN and t["off_count"] is None
+
+
+def _case_roots(t):
+    spans = t["spans"]
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["hsddp.solve"] * 2
+    by_id = {s.id: s for s in spans}
+    for r in roots:
+        inside = _under(spans, r.id)
+        assert STAGES <= {s.name for s in inside}
+        assert {s.name for s in inside} <= STAGES
+        for s in inside:
+            p = by_id[s.parent]
+            assert p.root == r.id
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    # CPU work records no device events
+    assert all(s.device_ms is None for s in spans)
+    assert all(s.host_ms >= 0 for s in spans)
+
+
+def _case_syncs(t):
+    roots = [s.id for s in t["spans"] if s.parent is None]
+    assert list(t["counts"]) == roots
+    got = [t["counts"][r]["hsddp.sync"] for r in roots]
+    assert got == t["syncs"] and min(got) > 0
+    spanned = [sum(1 for s in _under(t["spans"], r) if s.name == "hsddp.sync")
+               for r in roots]
+    assert spanned == got
+
+
+def _case_identical(t):
+    for res, off in zip(t["on"], t["off"]):
+        for f in ("cost", "Xbar", "Ubar", "K", "success"):
+            assert torch.equal(getattr(res, f), getattr(off, f)), f
+        for a, b in zip(res.info, off.info):
+            assert torch.equal(a, b)
+
+
+CASES = dict(off=_case_off, roots=_case_roots, syncs=_case_syncs,
+             identical=_case_identical)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_traced_solve(traced, case):
+    """Off: nothing recorded, the shared no-op span.  On: one
+    `hsddp.solve` root a call with every stage nested under it; the
+    `hsddp.sync` counter and spans equal the monkeypatched count of host
+    syncs; the same answers bit for bit."""
+    CASES[case](traced)
+
+
+def test_runtime_update_spans(tracer):
+    """An untraced initialize records nothing and still fills `timing`;
+    a traced update is one `runtime.update` root with its six stages in
+    order, the solve under `runtime.solve`, and `timing` from their
+    clocks."""
+    qr = _qr()
+    rt = HKDMPCRuntime(qr, hp.HKDConfig(**PLAN), SolverOptions(max_AL_iter=2),
+                       device="cpu")
+    x = np.asarray(_solve_args(torch.device("cpu"))[2][0])
+    rt.initialize(x)
+    assert tracer.spans() == [] and set(rt.timing) == {
+        "build_ms", "solve_ms", "fetch_ms"}
+    tracer.enable()
+    rt.update(x)
+    tracer.disable()
+    spans = tracer.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["runtime.update"]
+    root = roots[0]
+    kids = [s for s in spans if s.parent == root.id]
+    assert [s.name for s in kids] == RUNTIME_STAGES
+    by = {s.name: s for s in kids}
+    solves = [s for s in spans if s.name == "hsddp.solve"]
+    assert len(solves) == 1 and solves[0].parent == by["runtime.solve"].id
+    assert rt.timing == dict(
+        build_ms=(by["runtime.upload"].end_ns - root.start_ns) / 1e6,
+        solve_ms=by["runtime.solve"].host_ms,
+        fetch_ms=by["runtime.fetch"].host_ms)
+    assert rt.last_solve_ms == (by["runtime.fetch"].end_ns
+                                - by["runtime.solve"].start_ns) / 1e6
+    assert tracer.counts()[root.id]["hsddp.sync"] > 0
+
+
+@pytest.fixture(scope="module")
+def wb_model(tmp_path_factory):
+    urdf = synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp_path_factory.mktemp("robot")))
+    return wb_lane.load_lane_model(urdf, "cpu", torch.float64)
+
+
+@pytest.mark.parametrize("use_cf", [False, True])
+def test_wb_partials_spans(tracer, wb_model, use_cf):
+    """Both WB partial functions are one span each with the four stages
+    under it in order, on the jvp and on the CF path."""
+    rng = np.random.default_rng(3)
+    q = torch.zeros(3, 18, dtype=torch.float64)
+    q[:, 2] = 0.25
+    q[:, 6:] = torch.tensor([0.0, -0.8, 1.6] * 4, dtype=torch.float64)
+    q = q + 0.05 * torch.as_tensor(rng.normal(size=(3, 18)))
+    v = torch.as_tensor(rng.normal(size=(3, 18)))
+    tau = torch.as_tensor(rng.normal(size=(3, 18)))
+    c = torch.tensor([[1.0, 1, 1, 1], [1, 0, 0, 1], [0, 1, 1, 0]],
+                     dtype=torch.float64)
+    tracer.enable()
+    wb_lane.contact_kkt_dynamics_partials_lane(wb_model, q, v, tau, c, 10.0,
+                                               use_cf=use_cf)
+    wb_lane.impulse_dynamics_partials_lane(wb_model, q, v, c, use_cf=use_cf)
+    tracer.disable()
+    spans = tracer.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["wb.partials", "wb.impulse_partials"]
+    for r in roots:
+        assert [s.name for s in spans if s.parent == r.id] == WB_STAGES
+        assert len(_under(spans, r.id)) == len(WB_STAGES)
+
+
+# ---- on the card --------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_device_events_resolve_on_card(cuda, tracer):
+    """On the card every span of a device stage resolves to positive,
+    finite stream ms; host-only spans carry none."""
+    solve, args = _solver(), _solve_args(cuda)
+    solve(*args)
+    tracer.enable()
+    solve(*args)
+    tracer.disable()
+    spans = tracer.spans()
+    dev = [s for s in spans if s.name in DEVICE_STAGES]
+    assert DEVICE_STAGES == {s.name for s in dev}
+    assert all(math.isfinite(s.device_ms) and s.device_ms > 0 for s in dev)
+    assert all(s.device_ms is None for s in spans
+               if s.name not in DEVICE_STAGES)
+
+
+@pytest.mark.gpu
+def test_spans_are_profiler_ranges_on_card(cuda, tracer):
+    """Under a profile with CPU and CUDA activity each stage span is a
+    `record_function` range of its name that holds the device time of the
+    kernels launched inside it; with the tracer off there is none."""
+    from torch.profiler import ProfilerActivity, profile
+    solve, args = _solver(), _solve_args(cuda)
+    solve(*args)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as off:
+        solve(*args)
+        torch.cuda.synchronize()
+    tracer.enable()
+    with profile(activities=acts) as on:
+        solve(*args)
+        torch.cuda.synchronize()
+    tracer.disable()
+
+    def device_us(prof):
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            out[e.key] = e.cuda_time_total if t is None else t
+        return out
+
+    got, base = device_us(on), device_us(off)
+    assert not ({"hsddp.solve"} | STAGES) & set(base)
+    for name in ("hsddp.solve", "hsddp.lq", "hsddp.sweep", "hsddp.linroll",
+                 "hsddp.line_search", "hsddp.select"):
+        assert got.get(name, 0) > 0, name
