@@ -35,7 +35,9 @@ dimension B, plan tensors (shared by all scenarios) carry none.
 Loop semantics follow the vmapped JAX program exactly: each `while` runs
 while ANY scenario's condition holds, and a scenario whose condition is
 false keeps its carry unchanged (`tree_where`), iteration counters
-included.  One host sync per loop test.
+included.  One host sync per loop test (`_n_set`), which fetches how many
+scenarios' conditions hold: the select that follows it copies nothing
+where all or none do.
 
 Spans and counters (`utils/tracing.py`, off by default): `hsddp.solve`
 around a call, and inside it `hsddp.rollout` (the initial forward),
@@ -44,7 +46,9 @@ regularization retries), `hsddp.linroll`, `hsddp.line_search`,
 `hsddp.select` (each `tree_where`), `hsddp.al_update` and `hsddp.sync`
 (each host sync: every loop test, and each segment's reset-site fetch),
 which the `hsddp.sync` counter counts; the stages that launch device work
-carry CUDA events on the card.
+carry CUDA events on the card.  The counters `hsddp.select_skip` and
+`hsddp.select_copy` count the leaves `tree_where` passed through and
+those it selected on the device.
 """
 from typing import Any, Callable, NamedTuple
 
@@ -136,6 +140,12 @@ class SolverState(NamedTuple):
     info: SolverInfo
 
 
+# the SolverState fields that an AL outer iteration rewrites for every
+# scenario, those outside its mask too
+OUTER_REWRITES = ("max_pconstr_prev", "max_tconstr_prev", "reg", "pen",
+                  "done")
+
+
 class SolveResult(NamedTuple):
     """Trimmed solver output: what the MPC command tape consumes plus
     telemetry."""
@@ -147,27 +157,62 @@ class SolveResult(NamedTuple):
     info: SolverInfo
 
 
-def tree_where(mask, new, old):
+def tree_where(mask, new, old, n_set=None):
     """Per-scenario select over matching trees (NamedTuples / tuples) of
     [B, ...] tensors: scenario b takes `new` where mask[b], else `old`
-    (one `hsddp.select` span)."""
+    (one `hsddp.select` span).
+
+    Only what can differ is copied, and the result equals the per-leaf
+    `torch.where` bit for bit.  A leaf that is the same tensor on both
+    sides (the same object, or the same storage, shape and strides) comes
+    back as it is.  `n_set`, the count of set flags that the caller's loop
+    test fetched (`_n_set`): with all set every leaf is `new`'s, with none
+    set `old`'s.  Either way nothing is launched, except for a leaf whose
+    sides differ in dtype or shape, which `torch.where` promotes or
+    broadcasts.  Counts `hsddp.select_skip` per leaf passed through and
+    `hsddp.select_copy` per leaf selected on the device."""
+    take_new = (None if n_set is None or 0 < n_set < mask.numel()
+                else n_set > 0)
+    n = [0, 0]      # leaves skipped, copied
     with tracing.span("hsddp.select", device=mask):
-        return _select(mask, new, old)
+        out = _select(mask, new, old, take_new, n)
+    tracing.count("hsddp.select_skip", n[0])
+    tracing.count("hsddp.select_copy", n[1])
+    return out
 
 
-def _select(mask, new, old):
+def _same(a, b):
+    return a is b or (a.data_ptr() == b.data_ptr() and a.device == b.device
+                      and a.dtype == b.dtype and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+def _select(mask, new, old, take_new, n):
     if isinstance(new, torch.Tensor):
+        # what torch.where would return is one side unchanged only where
+        # neither promotion nor broadcasting enters
+        if new.dtype == old.dtype and new.shape == old.shape \
+                and new.shape[:1] == mask.shape:
+            if _same(new, old):
+                n[0] += 1
+                return new
+            if take_new is not None:
+                n[0] += 1
+                return new if take_new else old
+        n[1] += 1
         return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)),
                            new, old)
-    vals = [_select(mask, a, b) for a, b in zip(new, old)]
+    vals = [_select(mask, a, b, take_new, n) for a, b in zip(new, old)]
     return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
 
 
-def _any(mask):
-    """Whether any scenario's flag is set: a host sync."""
+def _n_set(mask):
+    """How many scenarios' flags are set: a host sync, one reduction and
+    one fetch.  A loop test reads it as whether any is set; `tree_where`
+    as whether all or none are."""
     tracing.count("hsddp.sync")
     with tracing.span("hsddp.sync"):
-        return bool(mask.any())
+        return int(mask.sum())
 
 
 def init_traj(plan: KnotPlan, xs, us, ys, Xbar0, Ubar0):
@@ -876,14 +921,17 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
             return alive & (~ok) & (reg <= opts.reg_max) & (it < 32)
 
         active = cond(c)
-        while _any(active):
+        n_act = _n_set(active)
+        while n_act:
             outs, reg, _, _, _, it = c
             outs2, dV1, dV2, ok2 = sweep_fn(plan, tr, reg, ops)
             reg2 = torch.where(
                 ok2, reg, torch.clamp(reg * opts.update_regularization,
                                       min=opts.reg_min_init))
-            c = tree_where(active, (outs2, reg2, ok2, dV1, dV2, it + 1), c)
+            c = tree_where(active, (outs2, reg2, ok2, dV1, dV2, it + 1), c,
+                           n_act)
             active = cond(c)
+            n_act = _n_set(active)
         outs, reg, ok, dV1, dV2, n_it = c
         tr = tr._replace(G=outs[0], H=outs[1], K=outs[2], dU=outs[3],
                          Qu=outs[4], Quu=outs[5], Qux=outs[6])
@@ -990,7 +1038,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
             return alive & (~success) & (eps > opts.ls_eps_min)
 
         active = cond(c)
-        while _any(active):
+        n_act = _n_set(active)
+        while n_act:
             _, _, eps, it, _, _, _, _ = c
             tr2, (cq2, g2, h2), cost2, feas2, _, _, ok = forward(
                 plan, sites, pen, tr, x0, eps)
@@ -1001,8 +1050,9 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
             eps2 = torch.where(succ, eps, eps * opts.alpha)
             roll2 = (tr2.X, tr2.U, tr2.Y, tr2.Xsim, tr2.Defect)
             c = tree_where(active, (roll2, (cq2, g2, h2), eps2, it + 1, succ,
-                                    cost2, feas2, merit2), c)
+                                    cost2, feas2, merit2), c, n_act)
             active = cond(c)
+            n_act = _n_set(active)
         roll, terms, _, n_it, success, cost, feas, merit = c
         tr = tr._replace(X=roll[0], U=roll[1], Y=roll[2], Xsim=roll[3],
                          Defect=roll[4])
@@ -1019,7 +1069,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         init = ((tr.X, tr.U, tr.Y, tr.Xsim, tr.Defect), terms_nom,
                 torch.zeros_like(alive), cost0, feas0, merit0,
                 torch.zeros_like(alive, dtype=torch.int32))
-        if not _any(alive):
+        n_alive = _n_set(alive)
+        if not n_alive:
             roll, terms, success, cost, feas, merit, n_it = init
         else:
             eps_c = opts.alpha ** torch.arange(n_ls, dtype=x0.dtype,
@@ -1059,7 +1110,7 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
                    cost[idx, b], feas[idx, b], merit[idx, b],
                    torch.where(any_ok, idx + 1, n_ls).to(torch.int32))
             roll, terms, success, cost, feas, merit, n_it = tree_where(
-                alive, new, init)
+                alive, new, init, n_alive)
         tr = tr._replace(X=roll[0], U=roll[1], Y=roll[2], Xsim=roll[3],
                          Defect=roll[4])
         return tr, terms, success, cost, feas, merit, n_it
@@ -1148,13 +1199,15 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
         it = torch.zeros_like(alive, dtype=torch.int32)
         done = torch.zeros_like(alive)
         active = alive & (it < opts.max_DDP_iter)
-        while _any(active):
+        n_act = _n_set(active)
+        while n_act:
             with tracing.span("hsddp.inner"):
                 s2, done2 = ddp_inner(plan, sites, s, active)
-                s = tree_where(active, s2, s)
+                s = tree_where(active, s2, s, n_act)
             done = torch.where(active, done2, done)
             it = it + active.to(torch.int32)
             active = alive & (it < opts.max_DDP_iter) & ~done
+            n_act = _n_set(active)
 
         # convergence checks (MultiPhaseDDP.cpp:394-405)
         feas_ok = s.feas <= opts.dynamics_feas_thresh
@@ -1219,15 +1272,23 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
 
         it = izero
         active = it < opts.max_AL_iter
+        n_act = _n_set(active)
         n_outer = 0
-        while _any(active):
+        while n_act:
             with tracing.span("hsddp.outer"):
-                s = tree_where(active, outer_body(plan, sites, s, active), s)
+                s2 = outer_body(plan, sites, s, active)
+                # The inner loop's masks are subsets of `active`, so it kept
+                # the carry of every scenario outside `active`: there the
+                # two sides differ only in the fields that outer_body
+                # rewrites for every scenario.  The rest is taken as it is.
+                s = tree_where(active, s2, s2._replace(
+                    **{f: getattr(s, f) for f in OUTER_REWRITES}), n_act)
             if iter_callback is not None:
                 iter_callback(s.traj.Xbar, s.traj.Ubar, n_outer)
             n_outer += 1
             it = it + active.to(torch.int32)
             active = (it < opts.max_AL_iter) & ~s.done
+            n_act = _n_set(active)
         if not trim_output:
             return s
         t = s.traj

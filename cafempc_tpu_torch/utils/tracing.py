@@ -22,10 +22,12 @@ While a `torch.profiler` run records, every span is also a
 the program's spans and the kernels they launched on one timeline
 (`export_chrome_trace` writes it).
 
-Counters (``tracing.count("hsddp.sync")``) are kept per root; a count made
-outside any span is kept under the root id None.  The solver's one
-counter, `hsddp.sync`, sits beside a `hsddp.sync` span at each site: the
-count is what a reader sums, the span where the sync lies on a timeline.
+Counters (``tracing.count("hsddp.sync")``, or ``count(name, n)`` to add
+n) are kept per root; a count made outside any span is kept under the
+root id None.  The solver's `hsddp.sync` sits beside a `hsddp.sync` span
+at each site: the count is what a reader sums, the span where the sync
+lies on a timeline.  Its `hsddp.select_skip` and `hsddp.select_copy`
+count the leaves of each select passed through and copied.
 
 Off, `span()` returns one shared no-op object and `count()` returns at
 once: nothing is allocated, no clock is read, no sync is made.
@@ -172,13 +174,13 @@ class Tracer:
     def stage(self, name):
         return Span(self if self.on else None, name)
 
-    def count(self, name):
+    def count(self, name, n=1):
         if not self.on:
             return
         stack = self._stack()
         root = stack[-1].root if stack else None
         per = self._counts.setdefault(root, {})
-        per[name] = per.get(name, 0) + 1
+        per[name] = per.get(name, 0) + n
 
     def spans(self):
         """Every recorded span in the order they opened; the device event

@@ -104,7 +104,7 @@ def _under(spans, root_id):
 @pytest.fixture(scope="module")
 def traced():
     """Both solvers' solves with the tracer off, then with it on, the host
-    syncs counted by wrappers of `_any` and `reset_sites` (one fetch a
+    syncs counted by wrappers of `_n_set` and `reset_sites` (one fetch a
     segment)."""
     _fresh()
     solvers = [_solver(True), _solver(False)]
@@ -115,10 +115,10 @@ def traced():
                off_span=tracing.span("hsddp.lq", device=args[2]),
                off_count=tracing.count("hsddp.sync"))
     syncs = []
-    real_any, real_sites = hsddp._any, hsddp.reset_sites
+    real_n_set, real_sites = hsddp._n_set, hsddp.reset_sites
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(hsddp, "_any",
-                   lambda m: syncs.append(1) or real_any(m))
+        mp.setattr(hsddp, "_n_set",
+                   lambda m: syncs.append(1) or real_n_set(m))
         mp.setattr(hsddp, "reset_sites", lambda *a: (
             lambda s: syncs.extend([1] * len(s)) or s)(real_sites(*a)))
         tracing.enable()
