@@ -9,7 +9,11 @@ root a call with every stage under it; the `hsddp.sync` counter equals
 the host syncs counted by a monkeypatch; the answers are bit-identical.
 An `HKDMPCRuntime` update is one `runtime.update` root with its six
 stages in order, and its `timing` comes from their clocks.  Both WB
-partial functions (jvp and CF paths) nest their four stages.
+partial functions (jvp and CF paths) nest their four stages.  A B=2 f64
+barrel-roll solve (1 AL x 1 DDP) off, then on: its `wbm.ad_partials`,
+`wbm.impact_partial` and `br.td_con` spans fire under its root, the
+`wbm.ad_directions` counter adds 48 (36) directions x samples a call,
+and the answers are bit-identical.
 
 On the card (marked `gpu`, skipped without one): the device event pairs
 resolve to positive stream ms, and under a profile with CPU and CUDA
@@ -25,16 +29,19 @@ import pytest
 import torch
 
 from cafempc_tpu_torch.convert import from_numpy
-from cafempc_tpu_torch.models import hkd, synthetic_robot, wb_lane
+from cafempc_tpu_torch.models import hkd, rbda, synthetic_robot, wb_lane, wbm
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch
+from cafempc_tpu_torch.problems import barrel_roll as br
 from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
-from cafempc_tpu_torch.reference.synthetic import synthetic_bound_reference
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference, write_synthetic_br_settings)
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver import hsddp
 from cafempc_tpu_torch.solver.options import SolverOptions
 from cafempc_tpu_torch.utils import tracing
+from torch_port_inputs import one_torch_thread  # noqa: F401 (fixture)
 
 B = 2
 PLAN = dict(plan_duration=0.3, n_steps_max=40)
@@ -254,6 +261,106 @@ def test_wb_partials_spans(tracer, wb_model, use_cf):
     for r in roots:
         assert [s.name for s in spans if s.parent == r.id] == WB_STAGES
         assert len(_under(spans, r.id)) == len(WB_STAGES)
+
+
+BR_SPANS = {"wbm.ad_partials": 48, "wbm.impact_partial": 36,
+            "br.td_con": None}
+
+
+@pytest.fixture(scope="module")
+def br_traced(tmp_path_factory, one_torch_thread):
+    """A B=2 f64 barrel-roll solve (pushed body velocities, 1 AL x 1 DDP)
+    with the tracer off, then on; the forward-mode Jacobians' inputs
+    recorded by a wrapper of `rbda.batched_jacobian`."""
+    _fresh()
+    tmp = tmp_path_factory.mktemp("br")
+    model = wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp)), "cpu", torch.float64)
+    plan_np, pen_np, Xbar0, Ubar0, _ = br.build_barrel_roll_plan(
+        write_synthetic_br_settings(str(tmp / "settings")))
+    x0 = np.tile(br.initial_state(), (B, 1))
+    x0[:, 18:21] += np.random.default_rng(5).normal(0.0, 0.2, (B, 3))
+    plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
+                                         "cpu", torch.float64)
+    args = (plan, broadcast_batch(pen, B), torch.as_tensor(x0),
+            broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B))
+    solve = hsddp.make_solver(br.make_barrel_roll_fns(model),
+                              SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                              fused_riccati=True, parallel_line_search=False,
+                              max_resets=16)
+    off = solve(*args)
+    out = dict(off=off, off_spans=tracing.spans(),
+               off_counts=tracing.counts())
+    shapes = []
+    real = rbda.batched_jacobian
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rbda, "batched_jacobian",
+                   lambda f, x: shapes.append(tuple(x.shape)) or real(f, x))
+        tracing.enable()
+        try:
+            on = solve(*args)
+        finally:
+            tracing.disable()
+    out.update(on=on, shapes=shapes, spans=tracing.spans(),
+               counts=tracing.counts())
+    _fresh()
+    return out
+
+
+def _br_off(t):
+    assert t["off_spans"] == [] and t["off_counts"] == {}
+
+
+def _br_spans(t):
+    spans = t["spans"]
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["hsddp.solve"]
+    inside = _under(spans, roots[0].id)
+    names = [s.name for s in inside]
+    for name in BR_SPANS:
+        assert name in names, name
+    lq = [s for s in inside if s.name == "hsddp.lq"]
+    for s in inside:
+        if s.name in ("wbm.ad_partials", "wbm.impact_partial"):
+            # the partials are taken inside the LQ stage
+            assert any(q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
+                       for q in lq), s.name
+    # one Jacobian a span, 48 directions in the dynamics', 36 in the
+    # impact's
+    dirs = [sh[-1] for sh in t["shapes"]]
+    assert dirs.count(48) == names.count("wbm.ad_partials") > 0
+    assert dirs.count(36) == names.count("wbm.impact_partial") > 0
+    assert sorted(set(dirs)) == [36, 48]
+    assert all(s.device_ms is None for s in inside)
+
+
+def _br_directions(t):
+    root = next(s.id for s in t["spans"] if s.parent is None)
+    want = sum(sh[-1] * math.prod(sh[:-1]) for sh in t["shapes"])
+    assert t["counts"][root]["wbm.ad_directions"] == want
+    # the dynamics' Jacobian runs over every step of every scenario
+    assert (B, 130, 48) in t["shapes"]
+
+
+def _br_identical(t):
+    for f in ("cost", "Xbar", "Ubar", "K", "success"):
+        assert torch.equal(getattr(t["on"], f), getattr(t["off"], f)), f
+    for a, b in zip(t["on"].info, t["off"].info):
+        assert torch.equal(a, b)
+
+
+BR_CASES = dict(off=_br_off, spans=_br_spans, directions=_br_directions,
+                identical=_br_identical)
+
+
+@pytest.mark.parametrize("case", sorted(BR_CASES))
+def test_traced_barrel_roll(br_traced, case):
+    """Off: nothing recorded.  On: the WB AD partials' and the touchdown
+    constraint's spans under the solve's root, the partials inside the
+    LQ stage; `wbm.ad_directions` is the directions x samples of every
+    Jacobian taken (48 x B x 130 for the dynamics'); the same answers
+    bit for bit."""
+    BR_CASES[case](br_traced)
 
 
 # ---- on the card --------------------------------------------------------
