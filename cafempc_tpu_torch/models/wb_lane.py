@@ -23,20 +23,24 @@ Each residual takes its per-body Jacobians, world inertias and foot
 Jacobians, and their time derivatives, from ONE FK pass and its jvp along v
 (`_kin`): the JAX module leaves merging the repeated FK passes to XLA.
 
-CAFEMPC_WB_CF=1 (off by default, as in the JAX module) replaces the
-residual's direction Jacobians by the closed-form FK derivative bundle
-(`cf_bundle`, ancestor cross-product rules) and its one jvp along v.  The
-partial functions take the switch as `use_cf`; None reads the variable at
-the call, as the JAX module reads it when it traces.
+The port's default replaces the residual's direction Jacobians by the
+closed-form FK derivative bundle (`cf_bundle`, ancestor cross-product
+rules) and its one jvp along v: the same derivatives, no tangent through
+a direction-vmapped FK.  CAFEMPC_WB_CF=0 takes the jvp directions, the JAX
+module's default (there CAFEMPC_WB_CF=1 selects the bundle).  The partial
+functions take the switch as `use_cf`; None reads the variable at the
+call, as the JAX module reads it when it traces.
 
 Spans (`utils/tracing.py`, host only): `wb.partials` around
 `contact_kkt_dynamics_partials_lane`, `wb.impulse_partials` around
 `impulse_dynamics_partials_lane`, and inside both `wb.kin` (FK and its jvp,
 or the CF bundle), `wb.kkt_solve` (`_kkt_schur_solve_lane`),
 `wb.directions` (`jac_lane`, or the CF tangents) and `wb.tail` (the
-factored-KKT assembly).
+factored-KKT assembly).  The counter `wb.cf_knots` adds the knots each
+call linearizes by the bundle.
 """
 import functools
+import math
 import os
 from typing import NamedTuple
 
@@ -156,8 +160,14 @@ def _dyn_terms(m, q, v, cmask3, bg_alpha):
 # 18] (the JAX module puts the knot axis last).
 
 def use_cf_env():
-    """CAFEMPC_WB_CF=1: the closed-form tangents (default off)."""
-    return os.environ.get("CAFEMPC_WB_CF", "0") == "1"
+    """The closed-form tangents unless CAFEMPC_WB_CF=0 (the jvp
+    directions)."""
+    return os.environ.get("CAFEMPC_WB_CF", "1") != "0"
+
+
+def _count_cf_knots(q):
+    """`wb.cf_knots` += the knots of q [..., nd]."""
+    tracing.count("wb.cf_knots", math.prod(q.shape[:-1]))
 
 
 class _CFBundle(NamedTuple):
@@ -369,7 +379,8 @@ def contact_kkt_dynamics_partials_lane(m, q, v, tau, contact, bg_alpha,
     contact_kkt_dynamics_partials, WBM.cpp:459-505): 18 q-directions and
     18 v-directions through the KKT residual, then one multi-RHS
     application of the factored KKT matrix.  use_cf: the residual's
-    Jacobians from the closed-form bundle (None: CAFEMPC_WB_CF).
+    Jacobians from the closed-form bundle, else by jvp (None:
+    `use_cf_env()`).
 
     Returns (dqdd_dq, dqdd_dv, dqdd_dtau, dlam_dq, dlam_dv, dlam_dtau),
     each [K, nd | 12, nd]."""
@@ -381,6 +392,7 @@ def contact_kkt_dynamics_partials_lane(m, q, v, tau, contact, bg_alpha,
 def _contact_partials(m, q, v, tau, contact, bg_alpha, damping, use_cf):
     cmask3, Sdiag = rbda._masks(contact, damping)
     if use_cf:
+        _count_cf_knots(q)
         with tracing.span("wb.kin"):
             cf, td = jvp(functools.partial(cf_bundle, m), (q,), (v,))
             M, h, J, _, gamma_raw = _cf_primal(m, cf, td, v, bg_alpha)
@@ -438,8 +450,8 @@ def impulse_dynamics_partials_lane(m, q, v, impact_mask, damping=1e-12,
     WBM.cpp:508-543): q-directions through the residual with per-body
     M-contractions, the v-columns one multi-RHS application of the
     factored KKT (rhs = M).  use_cf: the q-directions from the closed-form
-    bundle (None: CAFEMPC_WB_CF).  Returns (dvpost_dq, dvpost_dv), each
-    [K, nd, nd]."""
+    bundle, else by jvp (None: `use_cf_env()`).  Returns (dvpost_dq,
+    dvpost_dv), each [K, nd, nd]."""
     with tracing.span("wb.impulse_partials"):
         return _impulse_partials(m, q, v, impact_mask, damping,
                                  use_cf_env() if use_cf is None else use_cf)
@@ -448,6 +460,7 @@ def impulse_dynamics_partials_lane(m, q, v, impact_mask, damping=1e-12,
 def _impulse_partials(m, q, v, impact_mask, damping, use_cf):
     cmask3, Sdiag = rbda._masks(impact_mask, damping)
     if use_cf:
+        _count_cf_knots(q)
         with tracing.span("wb.kin"):
             cf = cf_bundle(m, q)
             M = _mass_from_bundle(m, cf)

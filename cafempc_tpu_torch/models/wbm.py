@@ -104,9 +104,15 @@ def impact_partial_analytic(model, x, contact_cur, contact_next):
     (rbda.impulse_dynamics_partials; WBM.cpp:508-543)."""
     q, v = x[..., :NQ], x[..., NQ:]
     impact_mask = (1.0 - contact_cur) * contact_next
-    dvp_dq, dvp_dv = rbda.impulse_dynamics_partials(model, q, v,
-                                                    impact_mask)
-    eye = torch.eye(NQ, dtype=x.dtype, device=x.device).expand_as(dvp_dq)
+    return impact_jacobian(*rbda.impulse_dynamics_partials(model, q, v,
+                                                           impact_mask))
+
+
+def impact_jacobian(dvp_dq, dvp_dv):
+    """Px [..., 36, 36] = [I 0; dvp_dq dvp_dv] of the impulse reset (q
+    passes through) from the post-impact velocity's partials."""
+    eye = torch.eye(NQ, dtype=dvp_dq.dtype,
+                    device=dvp_dq.device).expand_as(dvp_dq)
     return torch.cat([torch.cat([eye, torch.zeros_like(dvp_dq)], -1),
                       torch.cat([dvp_dq, dvp_dv], -1)], -2)
 

@@ -32,8 +32,9 @@ overrides on `models/wb_lane.py` (the JAX package's per-knot WB functions
 compute the same values); the JAX lane folding and lane chunking are TPU
 mechanics and are not ported.  The JAX package's switches are read where
 the functions are made: CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and
-reset partials by forward-mode AD, CAFEMPC_WB_CF=1 the WB segment's
-analytic partials from the closed-form FK bundle.
+reset partials by forward-mode AD, CAFEMPC_WB_CF=0 makes the WB segment's
+analytic partials from jvp directions in place of the port's default, the
+closed-form FK bundle.
 """
 import dataclasses
 import json
@@ -893,9 +894,10 @@ def make_mhpc_fns(cfg: MHPCConfig, model, mode="joint") -> ProblemFns:
     (`make_mhpc_fns_segmented`).  The environment is read here:
     CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and reset partials by
     forward-mode AD (joint mode always takes the dynamics partials so);
-    CAFEMPC_WB_CF=1 makes mode "wb"'s analytic partials from the
-    closed-form FK bundle (the JAX joint mode and AD partials do not reach
-    the lane partials, so it changes nothing there)."""
+    mode "wb"'s analytic partials come from the closed-form FK bundle
+    unless CAFEMPC_WB_CF=0 takes the jvp directions (the JAX joint mode and
+    AD partials do not reach the lane partials, so it changes nothing
+    there)."""
     if mode not in MODES:
         raise ValueError(f"make_mhpc_fns: unknown mode {mode!r} (one of "
                          f"{', '.join(MODES)})")

@@ -167,15 +167,15 @@ Phases (one line of output each, unless noted):
      environment switch set only inside its sub-phase (unset before and
      after, else the script fails):
      a. phase 6's WB linearization (256 x 25 knots) and impulse partials
-        (256 x 4) with CAFEMPC_WB_CF=1 (the closed-form FK bundle) against
-        the default jvp path: f64 to CF_TOL normalized, the f32 CF result
-        against the f64 one (A, B to 1e-3); then both paths in f32 in turns
-        (default, CF, CF, default): ms per call, launches, device busy ms,
-        idle share and peak memory;
+        (256 x 4) with the closed-form FK bundle (the default) against the
+        jvp path (CAFEMPC_WB_CF=0): f64 to CF_TOL normalized, the f32 CF
+        result against the f64 one (A, B to 1e-3); then both paths in f32
+        in turns (jvp, CF, CF, jvp): ms per call, launches, device busy
+        ms, idle share and peak memory;
      b. 7a's mhpc-B256-f32 segmented solve and keywords with
-        CAFEMPC_WB_CF=1: one solve profiled on the device, success flags
-        and iteration counts equal to 7a's, cost within COST_RTOL, sweep
-        and linroll launches;
+        CAFEMPC_WB_CF=0 (the jvp path): one solve profiled on the device,
+        success flags and iteration counts equal to 7a's, cost within
+        COST_RTOL, sweep and linroll launches;
      c. the same with CAFEMPC_WB_AD_PARTIALS=1 (the WB dynamics and reset
         partials by forward-mode AD), with its peak memory;
      d. the same solve with the joint-mode functions (`make_mhpc_fns(cfg,
@@ -2676,11 +2676,13 @@ def phase_sweep(label, models, b1, unfused):
 
 
 # Phase 12: the JAX package's MHPC options on the card, each switch set
-# only inside its sub-phase: the closed-form FK bundle (CAFEMPC_WB_CF=1),
-# the AD partials (CAFEMPC_WB_AD_PARTIALS=1), the joint mode and
+# only inside its sub-phase: the jvp directions (CAFEMPC_WB_CF=0, the JAX
+# package's default; the port's is the closed-form FK bundle), the AD
+# partials (CAFEMPC_WB_AD_PARTIALS=1), the joint mode and
 # MHPCRuntime(segmented=False); then the HKD-MPC demo's closed loop
 CF_ENV, AD_ENV = "CAFEMPC_WB_CF", "CAFEMPC_WB_AD_PARTIALS"
 CF_TOL = 1e-9           # 12a: CF against the jvp path, f64, normalized
+ENV_VALUES = {CF_ENV: "0", AD_ENV: "1"}   # each switch's value off default
 N_CF_TIMED = 3          # 12a: calls a turn
 RT_RTOL = 1e-7          # 12e: joint against segmented runtime commands
 N_DEMO_STEPS = 10       # 12f: MPC steps of the demo's closed loop
@@ -2688,12 +2690,12 @@ DEMO_GAIT_S = 2.0       # 12f: s of generated pace
 
 
 @contextlib.contextmanager
-def env_on(name):
-    """name=1 inside the block only: fails where it is set before or
+def env_on(name, value="1"):
+    """name=value inside the block only: fails where it is set before or
     after."""
     if name in os.environ:
         fail(f"{name} is set before its sub-phase")
-    os.environ[name] = "1"
+    os.environ[name] = value
     try:
         yield
     finally:
@@ -2703,11 +2705,12 @@ def env_on(name):
 
 
 def cf_turn(models, wb, imp, cf):
-    """One turn of 12a at f32 with CAFEMPC_WB_CF=cf: median CUDA-event ms
-    of the WB linearization and of the impulse partials, one WB call's
-    device profile (device only) and the turn's peak memory in GiB."""
+    """One turn of 12a at f32 on the CF path (cf) or the jvp path
+    (CAFEMPC_WB_CF=0): median CUDA-event ms of the WB linearization and of
+    the impulse partials, one WB call's device profile (device only) and
+    the turn's peak memory in GiB."""
     f32 = torch.float32
-    with env_on(CF_ENV) if cf else contextlib.nullcontext():
+    with contextlib.nullcontext() if cf else env_on(CF_ENV, "0"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         wb_ms = median_event_ms(lambda: wb_partials(models[f32], wb[f32]),
@@ -2723,25 +2726,25 @@ def cf_turn(models, wb, imp, cf):
 def phase_cf_bundle(label):
     """12a: the WB linearization on WB_KNOTS knots and the impulse
     partials on RESET_KNOTS (phase 6's knots) with the closed-form bundle
-    against the default jvp path: f64 on the card to CF_TOL, the f32 CF
-    result against the f64 one (A, B to F32_TOL); then both paths timed in
-    turns (default, CF, CF, default)."""
+    (the default) against the jvp path: f64 on the card to CF_TOL, the f32
+    CF result against the f64 one (A, B to F32_TOL); then both paths timed
+    in turns (jvp, CF, CF, jvp)."""
     f32, f64 = torch.float32, torch.float64
     models = lane_models()
     wb_np, imp_np = wb_knot_data(WB_KNOTS, SEED + 6), \
         wb_knot_data(RESET_KNOTS, SEED + 7)
     wb = {dt: on(wb_np, DEVICE, dt) for dt in (f32, f64)}
     imp = {dt: on(imp_np, DEVICE, dt) for dt in (f32, f64)}
-    jvp64 = (wb_partials(models[f64], wb[f64])
-             + impulse_partials(models[f64], imp[f64]))
-    with env_on(CF_ENV):
-        cf64 = (wb_partials(models[f64], wb[f64])
-                + impulse_partials(models[f64], imp[f64]))
-        cf32 = wb_partials(models[f32], wb[f32])
+    with env_on(CF_ENV, "0"):
+        jvp64 = (wb_partials(models[f64], wb[f64])
+                 + impulse_partials(models[f64], imp[f64]))
+    cf64 = (wb_partials(models[f64], wb[f64])
+            + impulse_partials(models[f64], imp[f64]))
+    cf32 = wb_partials(models[f32], wb[f32])
     err = rel_errors(cf64, jvp64)
     err32 = rel_errors(cf32, cf64[:4])
     finite = all(bool(torch.isfinite(o).all()) for o in cf32)
-    print(f"[12a] CAFEMPC_WB_CF=1 against the jvp path on the card, f64, "
+    print(f"[12a] the CF path against the jvp path on the card, f64, "
           f"normalized: A,B,C,D " + ", ".join(f"{e:.3e}" for e in err[:4])
           + "; impulse dvq, dvv " + ", ".join(f"{e:.3e}" for e in err[4:])
           + f" (tol {CF_TOL:g}); CF f32 against CF f64 on {WB_KNOTS} knots: "
@@ -2802,11 +2805,11 @@ def against_7a(tag, what, res, cost, success, mhpc):
 
 def option_solve(models, env, profile):
     """12b / 12c: 7a's mhpc-B256-f32 segmented solve and keywords with
-    `env` set to 1 while the functions are made and the solve runs: one
-    solve (profiled_solve) and the peak memory."""
+    `env` set off its default (ENV_VALUES) while the functions are made
+    and the solve runs: one solve (profiled_solve) and the peak memory."""
     f32 = torch.float32
     cfg, args, _ = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
-    with env_on(env):
+    with env_on(env, ENV_VALUES[env]):
         solve = make_batched_solver(
             mp.make_mhpc_fns_segmented(cfg, models[f32]), MHPC_OPTS,
             max_resets=MAX_RESETS, **MHPC_KW)
@@ -2819,13 +2822,14 @@ def option_solve(models, env, profile):
 
 
 def phase_mhpc_options(label, models, mhpc):
-    """12b-12c: 7a's solve with CAFEMPC_WB_CF=1 (profiled on the device),
+    """12b-12c: 7a's solve with CAFEMPC_WB_CF=0 (profiled on the device),
     then with CAFEMPC_WB_AD_PARTIALS=1."""
     for tag, env, profile in (("12b", CF_ENV, True), ("12c", AD_ENV, False)):
-        what = f"{env}=1 segmented"
+        what = f"{env}={ENV_VALUES[env]} segmented"
         res, cost, success, ms, counts, prof, peak = option_solve(
             models, env, profile)
-        print(f"[{tag}] mhpc B={MHPC_B} f32 with {env}=1, 7a's keywords: "
+        print(f"[{tag}] mhpc B={MHPC_B} f32 with {env}={ENV_VALUES[env]}, "
+              f"7a's keywords: "
               f"{ms:.1f} ms for one solve"
               + (" (device-only profiler on)" if profile else "") + "; "
               + against_7a(tag, what, res, cost, success, mhpc)

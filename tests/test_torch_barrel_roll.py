@@ -8,7 +8,10 @@ written for the test:
   * every problem function and its partials at a knot of each of the 6
     phases, the 6 phase-terminal knots and the 5 reset steps (2 with a
     touchdown impact, 3 identities), on seeded perturbed states: 1e-10
-    normalized by the JAX value's largest entry;
+    normalized by the JAX value's largest entry; the dynamics and reset
+    partials (the closed-form factored-KKT assembly by default) also
+    under CAFEMPC_WB_CF=0 (forward-mode AD, the JAX package's path) and
+    =1, each against JAX's `jacfwd`;
   * the whole 131-knot solve at 1 AL x 2 DDP: the port gathers the 5
     reset steps (`max_resets=16`), the JAX solve selects dynamics or reset
     at every step (`make_solver(..., max_resets=None)`), both with the
@@ -151,9 +154,8 @@ def jax_values(models, plans, points):
     return jax.tree.map(np.asarray, run())
 
 
-@pytest.mark.parametrize("name", STEP_FNS + RESET_FNS + KNOT_FNS)
-def test_problem_functions_match_jax(models, plans, points, jax_values,
-                                     name):
+def _check_against_jax(models, plans, points, jax_values, name):
+    """The port's `name` at its sites against JAX's, to TOL."""
     plan = from_numpy(plans[0][0], "cpu", F64)
     mid, resets, term = _sites(plans[0][0])
     X, U, Y = (torch.as_tensor(a)[None] for a in points)
@@ -179,6 +181,24 @@ def test_problem_functions_match_jax(models, plans, points, jax_values,
         assert g.shape == (1,) + w.shape
         np.testing.assert_allclose(g[0], w, rtol=0,
                                    atol=TOL * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", STEP_FNS + RESET_FNS + KNOT_FNS)
+def test_problem_functions_match_jax(models, plans, points, jax_values,
+                                     name):
+    _check_against_jax(models, plans, points, jax_values, name)
+
+
+@pytest.mark.parametrize("cf", ["0", "1"])
+@pytest.mark.parametrize("name", ["dyn_partials", "reset_partial"])
+def test_partials_match_jax_under_the_switch(models, plans, points,
+                                             jax_values, monkeypatch, name,
+                                             cf):
+    """CAFEMPC_WB_CF, read where the functions are made: "0" takes the
+    JAX package's forward-mode AD (`wbm.dynamics_partials`,
+    `wbm.impact_partial`), "1" the closed-form factored-KKT assembly."""
+    monkeypatch.setenv("CAFEMPC_WB_CF", cf)
+    _check_against_jax(models, plans, points, jax_values, name)
 
 
 def test_reset_is_the_identity_without_a_touchdown(models, plans, points):

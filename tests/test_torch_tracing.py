@@ -10,10 +10,13 @@ the host syncs counted by a monkeypatch; the answers are bit-identical.
 An `HKDMPCRuntime` update is one `runtime.update` root with its six
 stages in order, and its `timing` comes from their clocks.  Both WB
 partial functions (jvp and CF paths) nest their four stages.  A B=2 f64
-barrel-roll solve (1 AL x 1 DDP) off, then on: its `wbm.ad_partials`,
-`wbm.impact_partial` and `br.td_con` spans fire under its root, the
-`wbm.ad_directions` counter adds 48 (36) directions x samples a call,
-and the answers are bit-identical.
+barrel-roll solve (1 AL x 1 DDP) off, then on: its `wb.partials`,
+`wb.impulse_partials` and `br.td_con` spans fire under its root, the
+`wb.cf_knots` counter adds the knots each closed-form linearization
+takes, no forward-mode Jacobian is taken, and the answers are
+bit-identical; under CAFEMPC_WB_CF=0 its `wbm.ad_partials` and
+`wbm.impact_partial` spans fire instead and the `wbm.ad_directions`
+counter adds 48 (36) directions x samples a call.
 
 On the card (marked `gpu`, skipped without one): the device event pairs
 resolve to positive stream ms, and under a profile with CPU and CUDA
@@ -263,15 +266,19 @@ def test_wb_partials_spans(tracer, wb_model, use_cf):
         assert len(_under(spans, r.id)) == len(WB_STAGES)
 
 
-BR_SPANS = {"wbm.ad_partials": 48, "wbm.impact_partial": 36,
-            "br.td_con": None}
+# the spans of a barrel-roll solve on each path of its WB linearization:
+# the default (the closed-form bundle) and CAFEMPC_WB_CF=0 (forward-mode
+# AD); the first two are the partials, taken inside the LQ stage
+BR_SPANS = {"1": ("wb.partials", "wb.impulse_partials", "br.td_con"),
+            "0": ("wbm.ad_partials", "wbm.impact_partial", "br.td_con")}
 
 
-@pytest.fixture(scope="module")
-def br_traced(tmp_path_factory, one_torch_thread):
+def _trace_br(tmp_path_factory, cf):
     """A B=2 f64 barrel-roll solve (pushed body velocities, 1 AL x 1 DDP)
-    with the tracer off, then on; the forward-mode Jacobians' inputs
-    recorded by a wrapper of `rbda.batched_jacobian`."""
+    with its functions made under CAFEMPC_WB_CF=cf ("1": unset), with
+    the tracer off, then on; the inputs of the forward-mode Jacobians and
+    of the closed-form bundles recorded by wrappers of
+    `rbda.batched_jacobian` and `wb_lane.cf_bundle`."""
     _fresh()
     tmp = tmp_path_factory.mktemp("br")
     model = wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
@@ -284,27 +291,46 @@ def br_traced(tmp_path_factory, one_torch_thread):
                                          "cpu", torch.float64)
     args = (plan, broadcast_batch(pen, B), torch.as_tensor(x0),
             broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B))
-    solve = hsddp.make_solver(br.make_barrel_roll_fns(model),
+    with pytest.MonkeyPatch.context() as mp:
+        if cf == "1":
+            mp.delenv("CAFEMPC_WB_CF", raising=False)
+        else:
+            mp.setenv("CAFEMPC_WB_CF", cf)
+        fns = br.make_barrel_roll_fns(model)
+    solve = hsddp.make_solver(fns,
                               SolverOptions(max_AL_iter=1, max_DDP_iter=1),
                               fused_riccati=True, parallel_line_search=False,
                               max_resets=16)
     off = solve(*args)
-    out = dict(off=off, off_spans=tracing.spans(),
+    out = dict(cf=cf, off=off, off_spans=tracing.spans(),
                off_counts=tracing.counts())
-    shapes = []
-    real = rbda.batched_jacobian
+    shapes, bundles = [], []
+    jac, bundle = rbda.batched_jacobian, wb_lane.cf_bundle
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(rbda, "batched_jacobian",
-                   lambda f, x: shapes.append(tuple(x.shape)) or real(f, x))
+                   lambda f, x: shapes.append(tuple(x.shape)) or jac(f, x))
+        mp.setattr(wb_lane, "cf_bundle",
+                   lambda m, q: bundles.append(tuple(q.shape))
+                   or bundle(m, q))
         tracing.enable()
         try:
             on = solve(*args)
         finally:
             tracing.disable()
-    out.update(on=on, shapes=shapes, spans=tracing.spans(),
+    out.update(on=on, shapes=shapes, bundles=bundles, spans=tracing.spans(),
                counts=tracing.counts())
     _fresh()
     return out
+
+
+@pytest.fixture(scope="module")
+def br_traced(tmp_path_factory, one_torch_thread):
+    return _trace_br(tmp_path_factory, "1")
+
+
+@pytest.fixture(scope="module")
+def br_traced_ad(tmp_path_factory, one_torch_thread):
+    return _trace_br(tmp_path_factory, "0")
 
 
 def _br_off(t):
@@ -317,28 +343,44 @@ def _br_spans(t):
     assert [s.name for s in roots] == ["hsddp.solve"]
     inside = _under(spans, roots[0].id)
     names = [s.name for s in inside]
-    for name in BR_SPANS:
+    for name in BR_SPANS[t["cf"]]:
         assert name in names, name
     lq = [s for s in inside if s.name == "hsddp.lq"]
     for s in inside:
-        if s.name in ("wbm.ad_partials", "wbm.impact_partial"):
+        if s.name in BR_SPANS[t["cf"]][:2]:
             # the partials are taken inside the LQ stage
             assert any(q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
                        for q in lq), s.name
+    other = BR_SPANS["0" if t["cf"] == "1" else "1"][:2]
+    assert not set(other) & set(names)
+    assert all(s.device_ms is None for s in inside)
+
+
+def _br_directions(t):
+    root = next(s.id for s in t["spans"] if s.parent is None)
+    names = [s.name for s in t["spans"]]
+    counts = t["counts"][root]
+    if t["cf"] == "1":
+        # one bundle a linearization, over every knot it takes; no
+        # forward-mode Jacobian
+        assert t["shapes"] == [] and "wbm.ad_directions" not in counts
+        assert len(t["bundles"]) == names.count("wb.partials") \
+            + names.count("wb.impulse_partials") > 0
+        want = sum(math.prod(sh[:-1]) for sh in t["bundles"])
+        assert counts["wb.cf_knots"] == want
+        # the dynamics' linearization runs over every step of every
+        # scenario
+        assert (B, 130, 18) in t["bundles"]
+        return
+    assert t["bundles"] == [] and "wb.cf_knots" not in counts
+    want = sum(sh[-1] * math.prod(sh[:-1]) for sh in t["shapes"])
+    assert counts["wbm.ad_directions"] == want
     # one Jacobian a span, 48 directions in the dynamics', 36 in the
     # impact's
     dirs = [sh[-1] for sh in t["shapes"]]
     assert dirs.count(48) == names.count("wbm.ad_partials") > 0
     assert dirs.count(36) == names.count("wbm.impact_partial") > 0
     assert sorted(set(dirs)) == [36, 48]
-    assert all(s.device_ms is None for s in inside)
-
-
-def _br_directions(t):
-    root = next(s.id for s in t["spans"] if s.parent is None)
-    want = sum(sh[-1] * math.prod(sh[:-1]) for sh in t["shapes"])
-    assert t["counts"][root]["wbm.ad_directions"] == want
-    # the dynamics' Jacobian runs over every step of every scenario
     assert (B, 130, 48) in t["shapes"]
 
 
@@ -355,12 +397,20 @@ BR_CASES = dict(off=_br_off, spans=_br_spans, directions=_br_directions,
 
 @pytest.mark.parametrize("case", sorted(BR_CASES))
 def test_traced_barrel_roll(br_traced, case):
-    """Off: nothing recorded.  On: the WB AD partials' and the touchdown
-    constraint's spans under the solve's root, the partials inside the
-    LQ stage; `wbm.ad_directions` is the directions x samples of every
-    Jacobian taken (48 x B x 130 for the dynamics'); the same answers
-    bit for bit."""
+    """Off: nothing recorded.  On: the closed-form WB partials' and the
+    touchdown constraint's spans under the solve's root, the partials
+    inside the LQ stage; `wb.cf_knots` is the knots of every bundle taken
+    (B x 130 for the dynamics'), and no forward-mode Jacobian is taken;
+    the same answers bit for bit."""
     BR_CASES[case](br_traced)
+
+
+@pytest.mark.parametrize("case", sorted(BR_CASES))
+def test_traced_barrel_roll_ad(br_traced_ad, case):
+    """The same under CAFEMPC_WB_CF=0: the WB AD partials' spans, and
+    `wbm.ad_directions` the directions x samples of every Jacobian taken
+    (48 x B x 130 for the dynamics')."""
+    BR_CASES[case](br_traced_ad)
 
 
 # ---- on the card --------------------------------------------------------

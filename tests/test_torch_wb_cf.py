@@ -1,8 +1,9 @@
 """The closed-form FK derivative bundle of the port's knot-batched
-whole-body linearization (`wb_lane.cf_bundle`, CAFEMPC_WB_CF=1) against
-the JAX package's, with the knot axis first in the port and last in the
-JAX module, and against the port's default (jvp) path, f64 on CPU, on the
-synthetic quadruped.  Tolerances: tests/test_wb_lane.py's (1e-12 for the
+whole-body linearization (`wb_lane.cf_bundle`, the port's default,
+CAFEMPC_WB_CF=1 in the JAX package) against the JAX package's, with the
+knot axis first in the port and last in the JAX module, and against the
+port's jvp path (CAFEMPC_WB_CF=0), f64 on CPU, on the synthetic
+quadruped.  Tolerances: tests/test_wb_lane.py's (1e-12 for the
 bundle, 1e-9 for the partials).  The JAX functions run op by op (their
 unrolled lane Cholesky takes XLA minutes to compile)."""
 import jax.numpy as jnp
@@ -13,10 +14,11 @@ import torch
 from cafempc_tpu.models import wb_lane as jwl
 from cafempc_tpu_torch.convert import from_numpy
 from cafempc_tpu_torch.models import synthetic_robot, wb_lane
+from cafempc_tpu_torch.problems import barrel_roll as br
 from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
-from cafempc_tpu_torch.reference.synthetic import \
-    synthetic_bound_reference_urdf
+from cafempc_tpu_torch.reference.synthetic import (
+    synthetic_bound_reference_urdf, write_synthetic_br_settings)
 
 F64 = torch.float64
 K = 4
@@ -94,7 +96,7 @@ def test_cf_bundle_leading_dims(models, knots):
 def test_cf_partials_match_jax_and_default(models, knots, monkeypatch,
                                            which):
     """The CF contact-KKT and impulse partials against the JAX CF partials
-    (CAFEMPC_WB_CF=1) and against the port's default path, 1e-9."""
+    (CAFEMPC_WB_CF=1) and against the port's jvp path, 1e-9."""
     jm, m = models
     d, t = knots
     j = _jax(d)
@@ -118,11 +120,9 @@ def test_cf_partials_match_jax_and_default(models, knots, monkeypatch,
         _close(g, dflt.numpy(), 1e-9)
 
 
-def test_switch_is_read_where_the_fns_are_made(urdf_path, monkeypatch):
-    """make_mhpc_fns reads CAFEMPC_WB_CF once: the WB segment made with it
-    set takes the bundle after the variable is gone, and its partials
-    equal the default path's; made without it, it never does."""
-    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
+def _mhpc_site(m):
+    """(fns made by make_mhpc_fns' WB segment, X, U, step data) at 16
+    knots of a short cascade plan."""
     qr = QuadReference(synthetic_bound_reference_urdf(duration=1.0))
     qr.initialize(0.4)
     cfg = mp.MHPCConfig(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
@@ -133,19 +133,59 @@ def test_switch_is_read_where_the_fns_are_made(urdf_path, monkeypatch):
     U = torch.as_tensor(rng.normal(0, 2.0, (1, 16, 12)))
     sd = from_numpy(plan_np, "cpu", F64).step
     sd = type(sd)(*[a[:16] for a in sd])
+    return (lambda: mp.make_mhpc_fns(cfg, m, "wb")), X, U, sd
+
+
+def _br_site(m, tmp):
+    """(fns made by make_barrel_roll_fns, X, U, step data) at the barrel
+    roll's 5 reset steps (2 with a touchdown) and a step of each phase."""
+    plan_np, _, Xbar0, _, _ = br.build_barrel_roll_plan(
+        write_synthetic_br_settings(str(tmp / "setting")))
+    st = plan_np.step
+    resets = np.flatnonzero(st.is_reset > 0)
+    idx = np.sort(np.r_[resets, (np.r_[0, resets + 1]
+                                 + np.r_[resets, len(st.active)]) // 2])
+    rng = np.random.default_rng(4)
+    X = Xbar0[None, idx] + rng.normal(0, 0.05, (1, len(idx), 36))
+    X[..., 18:] += rng.normal(0, 0.5, (1, len(idx), 18))
+    U = torch.as_tensor(rng.normal(0, 4.0, (1, len(idx), 12)))
+    sd = from_numpy(plan_np, "cpu", F64).step
+    sd = type(sd)(*[a[torch.as_tensor(idx)] for a in sd])
+    return (lambda: br.make_barrel_roll_fns(m)), torch.as_tensor(X), U, sd
+
+
+def _check_switch(make, X, U, sd, monkeypatch):
+    """Functions made with CAFEMPC_WB_CF unset take the bundle after
+    CAFEMPC_WB_CF=0 is set, and their partials equal the other path's;
+    made under CAFEMPC_WB_CF=0 they never do, after it is gone."""
     calls = []
     real = wb_lane.cf_bundle
     monkeypatch.setattr(wb_lane, "cf_bundle",
                         lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setenv("CAFEMPC_WB_CF", "1")
-    cf_fns = mp.make_mhpc_fns(cfg, m, "wb")
-    monkeypatch.delenv("CAFEMPC_WB_CF")
+    monkeypatch.delenv("CAFEMPC_WB_CF", raising=False)
+    cf_fns = make()
+    monkeypatch.setenv("CAFEMPC_WB_CF", "0")
     got = cf_fns.dyn_partials(X, U, sd) + (cf_fns.reset_partial(X, sd),)
     assert len(calls) == 2
-    plain = mp.make_mhpc_fns(cfg, m, "wb")
-    monkeypatch.setenv("CAFEMPC_WB_CF", "1")
-    want = plain.dyn_partials(X, U, sd) + (plain.reset_partial(X, sd),)
+    other = make()
+    monkeypatch.delenv("CAFEMPC_WB_CF")
+    want = other.dyn_partials(X, U, sd) + (other.reset_partial(X, sd),)
     assert len(calls) == 2
     for g, w in zip(got, want):
         scale = max(float(w.abs().max()), 1e-30)
         assert float((g - w).abs().max()) / scale <= 1e-9
+
+
+def test_switch_is_read_where_the_fns_are_made(urdf_path, monkeypatch):
+    """make_mhpc_fns (the WB segment) reads CAFEMPC_WB_CF once
+    (`_check_switch`)."""
+    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
+    _check_switch(*_mhpc_site(m), monkeypatch)
+
+
+def test_switch_is_read_where_the_barrel_roll_fns_are_made(
+        urdf_path, tmp_path, monkeypatch):
+    """make_barrel_roll_fns reads CAFEMPC_WB_CF once (`_check_switch`):
+    "0" is the JAX package's forward-mode AD."""
+    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
+    _check_switch(*_br_site(m, tmp_path), monkeypatch)
