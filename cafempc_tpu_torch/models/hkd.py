@@ -267,9 +267,8 @@ def _sample_jacfwd(fn, argnums, args, trail):
 
 def dynamics_partials_ad(x, u, dt, contact):
     """A = dxnext/dx, B = dxnext/du by forward-mode AD of `dynamics` (48
-    tangents a sample): the reference for `dynamics_partials`, and the
-    CAFEMPC_HKD_AD_PARTIALS=1 path of `make_hkd_fns`.  [..., 24, 24]
-    each."""
+    tangents a sample): the reference for `dynamics_partials`.
+    [..., 24, 24] each."""
     return _sample_jacfwd(dynamics, (0, 1), (x, u, dt, contact),
                           (1, 1, 0, 1))
 

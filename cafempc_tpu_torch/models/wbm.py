@@ -8,20 +8,11 @@ Functional mirror of the reference WBM::Model (MHPC/MHPC-Trajopt/WBM.{h,cpp}):
 All heavy lifting lives in `rbda`; every function takes any leading batch
 dimensions (x [..., 36], u [..., 12], contact [..., 4], dt a number or a
 tensor [...]).  Leg order FL, FR, HL, HR (urdf convention).
-
-Spans (`utils/tracing.py`, with device events on the card):
-`wbm.ad_partials` around the forward-mode Jacobian of `dynamics_partials`,
-`wbm.impact_partial` around `impact_partial`.  The counter
-`wbm.ad_directions` adds, for each of the two, its directions (48 and 36)
-times its samples.
 """
-import math
-
 import torch
 
 from cafempc_tpu_torch.models import rbda
 from cafempc_tpu_torch.models.urdf import load_urdf_floating_base
-from cafempc_tpu_torch.utils import tracing
 
 XS = 36
 US = 12
@@ -68,10 +59,7 @@ def dynamics_partials(model, x, u, dt, contact, bg_alpha=10.0):
     def step(z):
         return dynamics(model, z[..., :XS], z[..., XS:], dt, contact,
                         bg_alpha)
-    z = torch.cat([x, u], -1)
-    _count_directions(z)
-    with tracing.span("wbm.ad_partials", device=z):
-        Jx, Jy = rbda.batched_jacobian(step, z)
+    Jx, Jy = rbda.batched_jacobian(step, torch.cat([x, u], -1))
     return Jx[..., :XS], Jx[..., XS:], Jy[..., :XS], Jy[..., XS:]
 
 
@@ -128,15 +116,8 @@ def impact(model, x, contact_cur, contact_next):
 
 def impact_partial(model, x, contact_cur, contact_next):
     """d impact / dx by forward-mode AD [..., 36, 36]."""
-    _count_directions(x)
-    with tracing.span("wbm.impact_partial", device=x):
-        return rbda.batched_jacobian(
-            lambda x_: impact(model, x_, contact_cur, contact_next)[0], x)
-
-
-def _count_directions(z):
-    """`wbm.ad_directions` += the Jacobian's directions x its samples."""
-    tracing.count("wbm.ad_directions", z.shape[-1] * math.prod(z.shape[:-1]))
+    return rbda.batched_jacobian(
+        lambda x_: impact(model, x_, contact_cur, contact_next)[0], x)
 
 
 def foot_positions(model, x):

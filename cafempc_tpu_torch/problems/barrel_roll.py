@@ -29,14 +29,13 @@ parallel_line_search=False, max_resets=16)`), which gives the same solve.
 The dynamics and impulse partials are the factored-KKT assembly on the
 closed-form FK derivative bundle (`models/wb_lane.py`): one forward pass,
 the KKT residual's q- and v-Jacobians in closed form, one multi-RHS
-application of the factored KKT matrix.  CAFEMPC_WB_CF=0, read where the
-functions are made, takes the JAX package's forward-mode AD through the
-whole step (`wbm.dynamics_partials`, `wbm.impact_partial`) instead.
+application of the factored KKT matrix.  The JAX package takes them by
+forward-mode AD through the whole step (`wbm.dynamics_partials`,
+`wbm.impact_partial`); the tests hold the port to it.
 
 Span (`utils/tracing.py`): `br.td_con` around the touchdown constraint
 (`term_con`) and around its partials (`term_con_partials`); the WB
-linearization's own spans are `models/wb_lane.py`'s (`wbm.py`'s under
-CAFEMPC_WB_CF=0).
+linearization's own spans are `models/wb_lane.py`'s.
 """
 import json
 import re
@@ -299,9 +298,7 @@ def _con_partials_np():
 def make_barrel_roll_fns(model, bg_alpha=10.0) -> ProblemFns:
     """Batched problem functions on the whole-body model `model`
     (`wbm.load_model(urdf_path, device, dtype)`, at the solve's device
-    and dtype).  CAFEMPC_WB_CF is read here (see the module's
-    docstring)."""
-    use_cf = wb_lane.use_cf_env()
+    and dtype)."""
     consts = _Consts(eye=np.eye(XS), lb=np.tile(JOINT_LB, 4),
                      ub=np.tile(JOINT_UB, 4), facets=_FACETS,
                      **dict(zip(("gx", "gu", "gy"), _con_partials_np())))
@@ -313,10 +310,7 @@ def make_barrel_roll_fns(model, bg_alpha=10.0) -> ProblemFns:
     def dyn_partials(X, U, sd):
         """A, B, C, D of `dyn` (JAX: jax.jacfwd through the step)."""
         dt, c = _bcast(X, sd.dt, sd.contact)
-        if use_cf:
-            return wb_lane.wb_dyn_partials_lane(model, X, U, dt, c, bg_alpha,
-                                                use_cf)
-        return wbm.dynamics_partials(model, X, U, dt, c, bg_alpha)
+        return wb_lane.wb_dyn_partials_lane(model, X, U, dt, c, bg_alpha)
 
     def impact_masks(X, sd):
         c, cn = _bcast(X, sd.contact, sd.contact_next)
@@ -333,12 +327,8 @@ def make_barrel_roll_fns(model, bg_alpha=10.0) -> ProblemFns:
         """The Jacobian of `reset`: the impact's where a foot touches down,
         I elsewhere."""
         c, cn, has_impact = impact_masks(X, sd)
-        if use_cf:
-            P = wbm.impact_jacobian(*wb_lane.impulse_dynamics_partials_lane(
-                model, X[..., :NQ], X[..., NQ:], (1.0 - c) * cn,
-                use_cf=use_cf))
-        else:
-            P = wbm.impact_partial(model, X, c, cn)
+        P = wbm.impact_jacobian(*wb_lane.impulse_dynamics_partials_lane(
+            model, X[..., :NQ], X[..., NQ:], (1.0 - c) * cn))
         return torch.where(has_impact[..., None, None], P, consts(X).eye)
 
     def run_cost(X, U, Y, sd):

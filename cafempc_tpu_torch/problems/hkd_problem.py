@@ -10,14 +10,11 @@
 The plan builder and the settings loader are host-side numpy, copied here
 because the JAX module imports jax at its top.  `make_hkd_fns()` returns
 torch functions that take the whole batch at once: states [B, n, 24]
-against plan slices [n, ...].  CAFEMPC_HKD_AD_PARTIALS=1, read when the
-functions are made, takes the dynamics partials by forward-mode AD
-(`hkd.dynamics_partials_ad`) instead of the closed form: the JAX package's
-A/B switch.  The fused LQ hook computes its own partials, so the switch
-changes nothing under it.
+against plan slices [n, ...].  The dynamics partials are the closed form
+(`hkd.dynamics_partials`; forward-mode AD, `hkd.dynamics_partials_ad`, is
+the tests' reference for it).  The fused LQ hook computes its own.
 """
 import dataclasses
-import os
 import re
 
 import numpy as np
@@ -320,12 +317,8 @@ def make_hkd_fns() -> ProblemFns:
     def dyn(x, u, sd):
         return hkd.dynamics(x, u, sd.dt, sd.contact), empty(x, 0)
 
-    partials = (hkd.dynamics_partials_ad
-                if os.environ.get("CAFEMPC_HKD_AD_PARTIALS", "0") == "1"
-                else hkd.dynamics_partials)
-
     def dyn_partials(x, u, sd):
-        A, B = partials(x, u, sd.dt, sd.contact)
+        A, B = hkd.dynamics_partials(x, u, sd.dt, sd.contact)
         return A, B, empty(x, 0, 24), empty(x, 0, 24)
 
     def reset(x, sd):

@@ -30,15 +30,13 @@ on the WB steps only and the SRB functions on the tail only.  In the WB
 segment there is one implementation, the batched form of the JAX lane
 overrides on `models/wb_lane.py` (the JAX package's per-knot WB functions
 compute the same values); the JAX lane folding and lane chunking are TPU
-mechanics and are not ported.  The JAX package's switches are read where
-the functions are made: CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and
-reset partials by forward-mode AD, CAFEMPC_WB_CF=0 makes the WB segment's
-analytic partials from jvp directions in place of the port's default, the
-closed-form FK bundle.
+mechanics and are not ported.  The WB dynamics and reset partials are the
+factored-KKT assembly on the closed-form FK bundle (`models/wb_lane.py`);
+the JAX package's forward-mode AD and jvp-direction routes compute the
+same partials and are the tests' references.
 """
 import dataclasses
 import json
-import os
 import re
 import types
 
@@ -570,12 +568,10 @@ def _ad_dyn_partials(dyn):
     return dyn_partials
 
 
-def _make_wb_fns(cfg: MHPCConfig, lm, use_cf=False, ad=False):
+def _make_wb_fns(cfg: MHPCConfig, lm):
     """The WB segment's batched functions on the whole-body model `lm`
     (the JAX lane overrides, mhpc_lane.py:200-498, with the batch
-    leading).  use_cf: the analytic partials from the closed-form FK
-    bundle; ad: the dynamics and reset partials by forward-mode AD
-    (mhpc_problem.py:549-552, 563-565)."""
+    leading)."""
     bg = float(cfg.BG_alpha)
     consts = _Consts(
         q=cfg.wb_q, r=cfg.wb_r, qf=cfg.wb_qf, reg=cfg.qfoot_reg,
@@ -605,7 +601,7 @@ def _make_wb_fns(cfg: MHPCConfig, lm, use_cf=False, ad=False):
 
     def dyn_partials(X, U, sd):
         dt, c = _bcast(X, sd.dt, sd.contact)
-        return wb_lane.wb_dyn_partials_lane(lm, X, U, dt, c, bg, use_cf)
+        return wb_lane.wb_dyn_partials_lane(lm, X, U, dt, c, bg)
 
     def reset_masks(X, sd):
         c, cn, ms = _bcast(X, sd.contact, sd.contact_next, sd.model_switch)
@@ -628,18 +624,11 @@ def _make_wb_fns(cfg: MHPCConfig, lm, use_cf=False, ad=False):
         k = consts(X)
         imp_mask, has_imp, switch = reset_masks(X, sd)
         q, v = X[..., :NQ], X[..., NQ:]
-        dvq, dvv = wb_lane.impulse_dynamics_partials_lane(
-            lm, q, v, imp_mask, use_cf=use_cf)
+        dvq, dvv = wb_lane.impulse_dynamics_partials_lane(lm, q, v, imp_mask)
         top = k.eye[:NQ].expand(X.shape[:-1] + (NQ, XS))
         P = torch.cat([top, torch.cat([dvq, dvv], -1)], -2)
         P = torch.where(has_imp[..., None, None], P, k.eye)
         return torch.where(switch[..., None, None], k.bm[:, None] * P, P)
-
-    if ad:
-        dyn_partials = _ad_dyn_partials(dyn)
-
-        def reset_partial(X, sd):
-            return rbda.batched_jacobian(lambda x: reset(x, sd), X)
 
     def run_cost(X, U, Y, sd):
         """Tracking + WBFootPlaceReg + SwingFootPos + SwingFootVel
@@ -891,13 +880,10 @@ def make_mhpc_fns(cfg: MHPCConfig, model, mode="joint") -> ProblemFns:
     mode="joint" (the JAX package's default): every callable handles both
     models through a model_id select, evaluating both on every knot.
     mode="wb" / "srb": one model's functions for the segmented solver
-    (`make_mhpc_fns_segmented`).  The environment is read here:
-    CAFEMPC_WB_AD_PARTIALS=1 takes the WB dynamics and reset partials by
-    forward-mode AD (joint mode always takes the dynamics partials so);
-    mode "wb"'s analytic partials come from the closed-form FK bundle
-    unless CAFEMPC_WB_CF=0 takes the jvp directions (the JAX joint mode and
-    AD partials do not reach the lane partials, so it changes nothing
-    there)."""
+    (`make_mhpc_fns_segmented`).  Joint mode takes its dynamics partials
+    by forward-mode AD through the select, as the JAX joint mode does; its
+    reset partials, and mode "wb"'s dynamics and reset partials, are the
+    closed-form factored-KKT assembly."""
     if mode not in MODES:
         raise ValueError(f"make_mhpc_fns: unknown mode {mode!r} (one of "
                          f"{', '.join(MODES)})")
@@ -907,10 +893,9 @@ def make_mhpc_fns(cfg: MHPCConfig, model, mode="joint") -> ProblemFns:
     if model is None:
         raise ValueError(f"make_mhpc_fns: mode {mode!r} needs the whole-body "
                          "model (wbm.load_model(urdf_path, ...))")
-    ad = os.environ.get("CAFEMPC_WB_AD_PARTIALS", "0") == "1"
     if mode == "wb":
-        return _make_wb_fns(cfg, model, use_cf=wb_lane.use_cf_env(), ad=ad)
-    return _make_joint_fns(_make_wb_fns(cfg, model, ad=ad), _make_srb_fns(cfg))
+        return _make_wb_fns(cfg, model)
+    return _make_joint_fns(_make_wb_fns(cfg, model), _make_srb_fns(cfg))
 
 
 def make_mhpc_fns_segmented(cfg: MHPCConfig, model) -> SegmentedFns:

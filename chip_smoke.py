@@ -163,21 +163,7 @@ Phases (one line of output each, unless noted):
         the same keywords with parallel_riccati and no mesh: equal success
         flags and iterations, cost within COST_RTOL, ms per solve;
      e. 3b's solve through `scenario_mesh()`: bit for bit 3b's;
- 12. the JAX package's MHPC options and the last ported modules, each
-     environment switch set only inside its sub-phase (unset before and
-     after, else the script fails):
-     a. phase 6's WB linearization (256 x 25 knots) and impulse partials
-        (256 x 4) with the closed-form FK bundle (the default) against the
-        jvp path (CAFEMPC_WB_CF=0): f64 to CF_TOL normalized, the f32 CF
-        result against the f64 one (A, B to 1e-3); then both paths in f32
-        in turns (jvp, CF, CF, jvp): ms per call, launches, device busy
-        ms, idle share and peak memory;
-     b. 7a's mhpc-B256-f32 segmented solve and keywords with
-        CAFEMPC_WB_CF=0 (the jvp path): one solve profiled on the device,
-        success flags and iteration counts equal to 7a's, cost within
-        COST_RTOL, sweep and linroll launches;
-     c. the same with CAFEMPC_WB_AD_PARTIALS=1 (the WB dynamics and reset
-        partials by forward-mode AD), with its peak memory;
+ 12. the MHPC joint mode and the last ported modules (sub-phases d-f):
      d. the same solve with the joint-mode functions (`make_mhpc_fns(cfg,
         model)`, every knot evaluating both models): a warm-up keeping the
         first sweep and linroll operands, one profiled solve against 7a's,
@@ -190,19 +176,13 @@ Phases (one line of output each, unless noted):
         in (0.05, 0.6) m, finite costs, ms per update;
  13. the JAX package's last HKD surface and config 5's arcdog half, on
      stand-in settings files that `write_synthetic_hkd_settings` writes
-     from the in-code defaults:
+     from the in-code defaults (sub-phases a, c and d):
      a. phase 3's bench default built as the JAX bench builds it
         (bench.py:58-84): `load_hkd_constraint_params`,
         `load_solver_options` cut to 2 AL x 1 DDP, `pen_to_device`; timed
         solves, launches per solve, one profiled solve, then against phase
         3's solve (success flags and iteration counts per scenario equal,
         cost within COST_RTOL);
-     b. phase 3b's configuration with CAFEMPC_HKD_AD_PARTIALS=1 (set only
-        inside the sub-phase) against the closed form, in turns (closed,
-        AD, AD, closed): ms per solve, launches, device busy ms, idle share
-        and peak memory, each solve against the first closed-form turn
-        (flags and iterations equal, cost within COST_RTOL); A and B of
-        both forms on 3b's first LQ operands in f64 to 1e-12 normalized;
      c. `HKDMPCRuntime(qr, cfg, opts)` with no device argument, from the
         files, initialize + 3 updates on phase 5's states: its solves on
         the card, commands within 1e-10 of phase 5's;
@@ -226,7 +206,6 @@ bound by the f64 peak) and the final `{"ok": true, "device": ...}` line.
 Exits non-zero, printing no result, without a CUDA device or when any phase
 fails.
 """
-import contextlib
 import dataclasses
 import json
 import os
@@ -2675,98 +2654,11 @@ def phase_sweep(label, models, b1, unfused):
     return launches
 
 
-# Phase 12: the JAX package's MHPC options on the card, each switch set
-# only inside its sub-phase: the jvp directions (CAFEMPC_WB_CF=0, the JAX
-# package's default; the port's is the closed-form FK bundle), the AD
-# partials (CAFEMPC_WB_AD_PARTIALS=1), the joint mode and
-# MHPCRuntime(segmented=False); then the HKD-MPC demo's closed loop
-CF_ENV, AD_ENV = "CAFEMPC_WB_CF", "CAFEMPC_WB_AD_PARTIALS"
-CF_TOL = 1e-9           # 12a: CF against the jvp path, f64, normalized
-ENV_VALUES = {CF_ENV: "0", AD_ENV: "1"}   # each switch's value off default
-N_CF_TIMED = 3          # 12a: calls a turn
+# Phase 12: the MHPC joint mode and MHPCRuntime(segmented=False) on the
+# card; then the HKD-MPC demo's closed loop
 RT_RTOL = 1e-7          # 12e: joint against segmented runtime commands
 N_DEMO_STEPS = 10       # 12f: MPC steps of the demo's closed loop
 DEMO_GAIT_S = 2.0       # 12f: s of generated pace
-
-
-@contextlib.contextmanager
-def env_on(name, value="1"):
-    """name=value inside the block only: fails where it is set before or
-    after."""
-    if name in os.environ:
-        fail(f"{name} is set before its sub-phase")
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        del os.environ[name]
-    if name in os.environ:
-        fail(f"{name} is still set after its sub-phase")
-
-
-def cf_turn(models, wb, imp, cf):
-    """One turn of 12a at f32 on the CF path (cf) or the jvp path
-    (CAFEMPC_WB_CF=0): median CUDA-event ms of the WB linearization and of
-    the impulse partials, one WB call's device profile (device only) and
-    the turn's peak memory in GiB."""
-    f32 = torch.float32
-    with contextlib.nullcontext() if cf else env_on(CF_ENV, "0"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        wb_ms = median_event_ms(lambda: wb_partials(models[f32], wb[f32]),
-                                N_CF_TIMED)
-        imp_ms = median_event_ms(
-            lambda: impulse_partials(models[f32], imp[f32]), N_CF_TIMED)
-        prof = profile_device(lambda: wb_partials(models[f32], wb[f32]),
-                              host=False)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return wb_ms, imp_ms, prof, peak
-
-
-def phase_cf_bundle(label):
-    """12a: the WB linearization on WB_KNOTS knots and the impulse
-    partials on RESET_KNOTS (phase 6's knots) with the closed-form bundle
-    (the default) against the jvp path: f64 on the card to CF_TOL, the f32
-    CF result against the f64 one (A, B to F32_TOL); then both paths timed
-    in turns (jvp, CF, CF, jvp)."""
-    f32, f64 = torch.float32, torch.float64
-    models = lane_models()
-    wb_np, imp_np = wb_knot_data(WB_KNOTS, SEED + 6), \
-        wb_knot_data(RESET_KNOTS, SEED + 7)
-    wb = {dt: on(wb_np, DEVICE, dt) for dt in (f32, f64)}
-    imp = {dt: on(imp_np, DEVICE, dt) for dt in (f32, f64)}
-    with env_on(CF_ENV, "0"):
-        jvp64 = (wb_partials(models[f64], wb[f64])
-                 + impulse_partials(models[f64], imp[f64]))
-    cf64 = (wb_partials(models[f64], wb[f64])
-            + impulse_partials(models[f64], imp[f64]))
-    cf32 = wb_partials(models[f32], wb[f32])
-    err = rel_errors(cf64, jvp64)
-    err32 = rel_errors(cf32, cf64[:4])
-    finite = all(bool(torch.isfinite(o).all()) for o in cf32)
-    print(f"[12a] the CF path against the jvp path on the card, f64, "
-          f"normalized: A,B,C,D " + ", ".join(f"{e:.3e}" for e in err[:4])
-          + "; impulse dvq, dvv " + ", ".join(f"{e:.3e}" for e in err[4:])
-          + f" (tol {CF_TOL:g}); CF f32 against CF f64 on {WB_KNOTS} knots: "
-          + ", ".join(f"{e:.3e}" for e in err32)
-          + f", f32 finite {finite} (A, B tol {F32_TOL:g}) [{label}]",
-          flush=True)
-    del jvp64, cf64, cf32
-    if not max(err) <= CF_TOL:
-        fail(f"the CF partials disagree with the jvp path: {err}")
-    if not (finite and max(err32[:2]) <= F32_TOL):
-        fail(f"the f32 CF partials are not finite or too far from f64: "
-             f"{err32}")
-    turns = [(cf, cf_turn(models, wb, imp, cf))
-             for cf in (False, True, True, False)]
-    for cf, (wb_ms, imp_ms, prof, peak) in turns:
-        print(f"[12a] turn CF={int(cf)}, f32: wb_dyn_partials_lane on "
-              f"{WB_KNOTS} knots median {wb_ms:.2f} ms over {N_CF_TIMED} "
-              f"calls, impulse partials on {RESET_KNOTS} knots "
-              f"{imp_ms:.2f} ms; "
-              + profile_text(prof, "one WB call (device only)")
-              + f"; peak device memory {peak:.2f} GiB [{label}]",
-              flush=True)
 
 
 def profiled_solve(solve, args, profile=True):
@@ -2801,45 +2693,6 @@ def against_7a(tag, what, res, cost, success, mhpc):
         fail(f"{tag}: the {what} solve disagrees with phase 7a's (success "
              f"flags, iteration counts equal {same_it}, cost {dc:.3e})")
     return f"{text}, iteration counts equal per scenario {same_it} (7a)"
-
-
-def option_solve(models, env, profile):
-    """12b / 12c: 7a's mhpc-B256-f32 segmented solve and keywords with
-    `env` set off its default (ENV_VALUES) while the functions are made
-    and the solve runs: one solve (profiled_solve) and the peak memory."""
-    f32 = torch.float32
-    cfg, args, _ = mhpc_problem(MHPC_B, f32, mhpc_cfg, 0.75, 2.0)
-    with env_on(env, ENV_VALUES[env]):
-        solve = make_batched_solver(
-            mp.make_mhpc_fns_segmented(cfg, models[f32]), MHPC_OPTS,
-            max_resets=MAX_RESETS, **MHPC_KW)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        res, cost, success, ms, counts, prof = profiled_solve(solve, args,
-                                                              profile)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return res, cost, success, ms, counts, prof, peak
-
-
-def phase_mhpc_options(label, models, mhpc):
-    """12b-12c: 7a's solve with CAFEMPC_WB_CF=0 (profiled on the device),
-    then with CAFEMPC_WB_AD_PARTIALS=1."""
-    for tag, env, profile in (("12b", CF_ENV, True), ("12c", AD_ENV, False)):
-        what = f"{env}={ENV_VALUES[env]} segmented"
-        res, cost, success, ms, counts, prof, peak = option_solve(
-            models, env, profile)
-        print(f"[{tag}] mhpc B={MHPC_B} f32 with {env}={ENV_VALUES[env]}, "
-              f"7a's keywords: "
-              f"{ms:.1f} ms for one solve"
-              + (" (device-only profiler on)" if profile else "") + "; "
-              + against_7a(tag, what, res, cost, success, mhpc)
-              + f"; kernel launches {counts}; "
-              + (profile_text(prof, "the solve (device only)") + "; "
-                 if profile else "")
-              + f"peak device memory {peak:.2f} GiB [{label}]", flush=True)
-        missed = [k for k in PATH_KERNELS if counts[k] == 0]
-        if missed:
-            fail(f"{tag}: kernels of the path were never launched: {missed}")
 
 
 def phase_mhpc_joint(label, models, mhpc):
@@ -2957,23 +2810,15 @@ def phase_demo(label):
 
 
 def phase_options(label, models, mhpc):
-    """Phase 12 (12a-12f); returns 12d's kernel figures."""
-    for env in (CF_ENV, AD_ENV):
-        if env in os.environ:
-            fail(f"{env} is set before phase 12")
-    phase_cf_bundle(label)
-    phase_mhpc_options(label, models, mhpc)
+    """Phase 12 (12d-12f); returns 12d's kernel figures."""
     joint = phase_mhpc_joint(label, models, mhpc)
     phase_runtime_joint(label, models[torch.float64], mhpc["runtime"])
     phase_demo(label)
     return joint
 
 
-# Phase 13: the JAX package's last HKD surface (the settings loaders, the
-# AD partials switch) and config 5's arcdog half
-HKD_AD_ENV = "CAFEMPC_HKD_AD_PARTIALS"
-AD_TOL = 1e-12          # 13b: AD against closed-form A, B, f64, normalized
-N_AD_TIMED = 3          # 13b: timed solves a turn
+# Phase 13: the JAX package's last HKD surface (the settings loaders) and
+# config 5's arcdog half
 RT_SETTINGS_TOL = 1e-10  # 13c: commands against phase 5's, normalized
 N_RT_SETTINGS = 3       # 13c: updates after the initialize
 ARCDOG_CHUNK = 64       # 13d: scenarios a chunk
@@ -3013,80 +2858,6 @@ def phase_settings_bench(label, root, fused):
         fail("13a: the solve from the settings files disagrees with phase "
              "3's")
     return per_solve
-
-
-def first_lq_operands(args):
-    """The operands of the first dynamics-partials call of 3b's solve
-    (states, controls, dt, contacts), from one solve."""
-    fns = hp.make_hkd_fns()
-    seen = []
-
-    def dyn_partials(x, u, sd):
-        if not seen:
-            seen.append((x.clone(), u.clone(), sd.dt.clone(),
-                         sd.contact.clone()))
-        return fns.dyn_partials(x, u, sd)
-    make_batched_solver(fns._replace(dyn_partials=dyn_partials), OPTS,
-                        **SOLVE_KW)(*args).cost.cpu()
-    return seen[0]
-
-
-def ad_turn(args, ad):
-    """One turn of 13b, CAFEMPC_HKD_AD_PARTIALS=ad while the functions are
-    made and the solves run: N_AD_TIMED timed solves after a warm-up, then
-    one solve profiled on the device with the counts set to 0 just before
-    and read just after; the turn's peak memory in GiB."""
-    with env_on(HKD_AD_ENV) if ad else contextlib.nullcontext():
-        solve = make_batched_solver(hp.make_hkd_fns(), OPTS, **SOLVE_KW)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        res, cost, success, ms = timed_solves(solve, args, N_AD_TIMED)
-        prof_out = profiled_solve(solve, args)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return (res, cost, success), ms, prof_out[4], prof_out[5], peak
-
-
-def phase_ad_partials(label, unfused):
-    """13b: phase 3b's configuration with CAFEMPC_HKD_AD_PARTIALS=1 (the
-    dynamics partials by forward-mode AD) against the closed form, in
-    turns (closed, AD, AD, closed): every AD solve with the closed-form
-    solve's success flags and iteration counts per scenario and its cost
-    within COST_RTOL; A and B of both forms on 3b's first LQ operands in
-    f64 to AD_TOL.  Returns the AD solve's launches."""
-    if HKD_AD_ENV in os.environ:
-        fail(f"{HKD_AD_ENV} is set before 13b")
-    args, _ = bench_problem(torch.float32)
-    x, u, dt, c = (t.double() for t in first_lq_operands(args))
-    err = rel_errors(hkd.dynamics_partials_ad(x, u, dt, c),
-                     hkd.dynamics_partials(x, u, dt, c))
-    print(f"[13b] {HKD_AD_ENV}=1 partials against the closed form on 3b's "
-          f"first LQ operands ({tuple(x.shape[:-1])} knots), f64 on the "
-          f"card, normalized: A {err[0]:.3e}, B {err[1]:.3e} (tol "
-          f"{AD_TOL:g}) [{label}]", flush=True)
-    if not max(err) <= AD_TOL:
-        fail(f"13b: the AD partials disagree with the closed form: {err}")
-    turns = [(ad, ad_turn(args, ad)) for ad in (False, True, True, False)]
-    ref = turns[0][1][0]
-    for ad, (solve, ms, counts, prof, peak) in turns:
-        same, dc = same_solves(solve, ref)
-        print(f"[13b] turn AD={int(ad)}, hkd B={B} f32 without the fused LQ "
-              f"and trial: median {statistics.median(ms):.2f} ms per "
-              f"batched solve (each: {', '.join(f'{m:.2f}' for m in ms)}); "
-              f"success {int(solve[2].sum())}/{B}; against the first "
-              f"closed-form turn success flags and iteration counts equal "
-              f"{same}, cost rel diff {dc:.3e}; against 3b's "
-              f"{same_solves(solve, unfused)[0]}; launches in the profiled "
-              f"solve {counts}; "
-              + profile_text(prof, "the solve (device only)")
-              + f"; peak device memory {peak:.2f} GiB [{label}]", flush=True)
-        if not (same and dc <= COST_RTOL and bool(solve[2].all())):
-            fail(f"13b: the AD={int(ad)} solve disagrees with the "
-                 "closed-form solve or failed a scenario")
-        if not all(counts[k] for k in PATH_KERNELS):
-            fail(f"13b: the solve launched no sweep or linroll: {counts}")
-    if HKD_AD_ENV in os.environ:
-        fail(f"{HKD_AD_ENV} is still set after 13b")
-    return turns[1][1][2]
 
 
 def phase_runtime_settings(label, root, steps):
@@ -3198,13 +2969,12 @@ def phase_arcdog(label, tmp):
     return per_solve
 
 
-def phase_hkd_surface(label, fused, unfused, steps5):
-    """Phase 13 (13a-13d); returns the launches per solve of 13a, 13b's AD
-    solve and 13d."""
+def phase_hkd_surface(label, fused, steps5):
+    """Phase 13 (13a, 13c, 13d); returns the launches per solve of 13a and
+    13d."""
     with tempfile.TemporaryDirectory() as tmp:
         root = write_synthetic_hkd_settings(tmp)
         launches = {"13a": phase_settings_bench(label, root, fused)}
-        launches["13b"] = phase_ad_partials(label, unfused)
         phase_runtime_settings(label, root, steps5)
         launches["13d"] = phase_arcdog(label, tmp)
     return launches
@@ -3277,7 +3047,7 @@ def main():
                      trajopt)
     chain = timed_phase(11, phase_sweep, label, models, b1, unfused)
     joint = timed_phase(12, phase_options, label, models, mhpc)
-    timed_phase(13, phase_hkd_surface, label, fused, unfused, steps5)
+    timed_phase(13, phase_hkd_surface, label, fused, steps5)
 
     print(label)
     # each TPU kernel by its function's `def` line / its pallas_call line

@@ -9,9 +9,10 @@ written for the test:
     phases, the 6 phase-terminal knots and the 5 reset steps (2 with a
     touchdown impact, 3 identities), on seeded perturbed states: 1e-10
     normalized by the JAX value's largest entry; the dynamics and reset
-    partials (the closed-form factored-KKT assembly by default) also
-    under CAFEMPC_WB_CF=0 (forward-mode AD, the JAX package's path) and
-    =1, each against JAX's `jacfwd`;
+    partials (the port's one route, the closed-form factored-KKT
+    assembly) against each JAX route: the JAX barrel roll's `jacfwd`
+    through the step and the JAX lane module's closed-form partials
+    (CAFEMPC_WB_CF=1 there);
   * the whole 131-knot solve at 1 AL x 2 DDP: the port gathers the 5
     reset steps (`max_resets=16`), the JAX solve selects dynamics or reset
     at every step (`make_solver(..., max_resets=None)`), both with the
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from cafempc_tpu.models import wb_lane as jwl
 from cafempc_tpu.models import wbm as jwbm
 from cafempc_tpu.problems import barrel_roll as jbr
 from cafempc_tpu.solver.hsddp import make_solver as jax_make_solver
@@ -189,16 +191,50 @@ def test_problem_functions_match_jax(models, plans, points, jax_values,
     _check_against_jax(models, plans, points, jax_values, name)
 
 
-@pytest.mark.parametrize("cf", ["0", "1"])
+@pytest.fixture(scope="module")
+def jax_cf_values(files, plans, points):
+    """The JAX lane module's closed-form dynamics partials at the
+    mid-phase steps and its impact Jacobians at the reset steps (the
+    identity without a touchdown), op by op with the knot axis last, then
+    moved first as `jax_values` holds them."""
+    jm = jwl.load_lane_model(files[0])
+    mid, resets, _ = _sites(plans[0][0])
+    st = plans[0][0].step
+    X, U, _ = points
+    mpatch = pytest.MonkeyPatch()
+    mpatch.setenv("CAFEMPC_WB_CF", "1")
+    try:
+        dyn = jwl.wb_dyn_partials_lane(
+            jm, jnp.asarray(X[mid].T), jnp.asarray(U[mid].T),
+            jnp.asarray(st.dt[mid]), jnp.asarray(st.contact[mid].T), 10.0)
+        c, cn = st.contact[resets], st.contact_next[resets]
+        x = X[resets]
+        dvq, dvv = jwl.impulse_dynamics_partials_lane(
+            jm, jnp.asarray(x[:, :18].T), jnp.asarray(x[:, 18:].T),
+            jnp.asarray(((1.0 - c) * cn).T))
+    finally:
+        mpatch.undo()
+    first = [np.moveaxis(np.asarray(a), -1, 0) for a in (*dyn, dvq, dvv)]
+    n = len(resets)
+    P = np.concatenate([
+        np.concatenate([np.broadcast_to(np.eye(18), (n, 18, 18)),
+                        np.zeros((n, 18, 18))], -1),
+        np.concatenate(first[4:], -1)], -2)
+    touch = ((cn - c) > 0.5).any(1)
+    P = np.where(touch[:, None, None], P, np.eye(36))
+    return dict(dyn_partials=tuple(first[:4]), reset_partial=P)
+
+
+@pytest.mark.parametrize("route", ["ad", "cf"])
 @pytest.mark.parametrize("name", ["dyn_partials", "reset_partial"])
-def test_partials_match_jax_under_the_switch(models, plans, points,
-                                             jax_values, monkeypatch, name,
-                                             cf):
-    """CAFEMPC_WB_CF, read where the functions are made: "0" takes the
-    JAX package's forward-mode AD (`wbm.dynamics_partials`,
-    `wbm.impact_partial`), "1" the closed-form factored-KKT assembly."""
-    monkeypatch.setenv("CAFEMPC_WB_CF", cf)
-    _check_against_jax(models, plans, points, jax_values, name)
+def test_partials_match_each_jax_route(models, plans, points, request, name,
+                                       route):
+    """The port's one route against the JAX package's forward-mode AD
+    through the step ("ad", the JAX barrel roll's own `jacfwd`) and its
+    closed-form lane partials ("cf")."""
+    values = request.getfixturevalue("jax_values" if route == "ad"
+                                     else "jax_cf_values")
+    _check_against_jax(models, plans, points, values, name)
 
 
 def test_reset_is_the_identity_without_a_touchdown(models, plans, points):

@@ -458,8 +458,8 @@ def test_srb_partials_on_card_match_cpu(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
 def test_hkd_ad_partials_on_card_match_cpu(cuda, dtype, tol):
-    """`dynamics_partials_ad` and `reset_map_partial_ad` (the
-    CAFEMPC_HKD_AD_PARTIALS=1 path) on [4, 16] knots against [16] plan
+    """`dynamics_partials_ad` and `reset_map_partial_ad` (the JAX
+    package's AD route) on [4, 16] knots against [16] plan
     data on the card, against the same knots in f64 on the CPU and against
     the closed forms on the card."""
     r = np.random.default_rng(3)
@@ -620,16 +620,16 @@ def test_mhpc_fns_on_card_match_cpu(cuda, robot, name, knot):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", MODEL_DTYPES)
 def test_cf_partials_on_card_match_cpu(cuda, robot, dtype, tol):
-    """The closed-form-bundle partials (CAFEMPC_WB_CF=1's path: the WB
-    linearization and the impulse partials) of 16 knots on the card
-    against the same knots in f64 on the CPU."""
+    """The closed-form-bundle partials (the WB linearization and the
+    impulse partials) of 16 knots on the card against the same knots in
+    f64 on the CPU."""
     def run(device, dt):
         m = wb_lane.load_lane_model(robot, device, dt)
         d = _on(_wb_knots(16), device, dt)
         return (*wb_lane.wb_dyn_partials_lane(m, d["x"], d["u"], d["dt"],
-                                              d["c"], 10.0, use_cf=True),
+                                              d["c"], 10.0),
                 *wb_lane.impulse_dynamics_partials_lane(
-                    m, d["x"][:, :18], d["x"][:, 18:], d["c"], use_cf=True))
+                    m, d["x"][:, :18], d["x"][:, 18:], d["c"]))
 
     for g, w in zip(run(cuda, dtype), run("cpu", torch.float64)):
         assert g.device.type == "cuda" and g.dtype == dtype

@@ -6,10 +6,10 @@
 * `write_synthetic_hkd_settings` read back by both packages' loaders, and
   by the HKD demo's `--settings-dir`;
 * `pen_to_device` and the facet helpers;
-* CAFEMPC_HKD_AD_PARTIALS=1: the port's `make_hkd_fns` takes the AD
-  partials, and a B=4, 40-step solve under the switch against the JAX
-  un-fused solve under the same switch (cost 1e-8 relative, equal
-  iteration counts), the port's sweep given the JAX sweep's exact
+* the JAX package's CAFEMPC_HKD_AD_PARTIALS=1: a B=4, 40-step solve of
+  the port's `make_hkd_fns` (the closed-form partials) against the JAX
+  un-fused solve under the switch (cost 1e-8 relative, equal iteration
+  counts), the port's sweep given the JAX sweep's exact
   factorization: the kernel's pivot rule differs from it by 1e-9 / d
   relative, which moves this solve's cost by ~7e-8 (see
   tests/test_torch_hkd_solve.py, which holds the port to JAX both ways);
@@ -128,34 +128,12 @@ def test_pen_to_device_and_facets_match_jax():
                                   np.asarray(jhp._facets()))
 
 
-# ---- CAFEMPC_HKD_AD_PARTIALS=1 -----------------------------------------
+# ---- the JAX package under CAFEMPC_HKD_AD_PARTIALS=1 -------------------
 
 B = 4
 OPTS = SolverOptions(max_AL_iter=2, max_DDP_iter=1)
 KW = dict(trim_output=True, parallel_line_search=False, max_resets=16,
           reg_floor=1e-3)
-
-
-def test_switch_takes_the_ad_partials(monkeypatch):
-    """The switch is read when the functions are made: set, dyn_partials
-    calls `hkd.dynamics_partials_ad`; unset, the closed form."""
-    calls = []
-    ad = hkd.dynamics_partials_ad
-    monkeypatch.setattr(hkd, "dynamics_partials_ad",
-                        lambda *a: calls.append(1) or ad(*a))
-    x = torch.zeros(2, 3, 24, dtype=torch.float64)
-    sd = type("SD", (), dict(dt=torch.full((3,), 0.01, dtype=x.dtype),
-                             contact=torch.ones(3, 4, dtype=x.dtype)))
-    monkeypatch.delenv(AD_ENV, raising=False)
-    closed = hp.make_hkd_fns()
-    monkeypatch.setenv(AD_ENV, "1")
-    fns = hp.make_hkd_fns()
-    monkeypatch.delenv(AD_ENV)
-    A, Bm, C, D = fns.dyn_partials(x, x, sd)
-    assert calls == [1] and A.shape == (2, 3, 24, 24) and C.shape[-2] == 0
-    A0, B0, _, _ = closed.dyn_partials(x, x, sd)
-    assert calls == [1]
-    assert (A - A0).abs().max() < 1e-12 and (Bm - B0).abs().max() < 1e-12
 
 
 @pytest.fixture(scope="module")
@@ -188,8 +166,9 @@ def _exact_cholesky(Quu):
 def test_ad_switch_solve_matches_jax(ad_problem, monkeypatch):
     plan_np, pen_np, Xbar0, Ubar0, x0 = ad_problem
     monkeypatch.setattr(sweep_mod, "cholesky_pivot_rule", _exact_cholesky)
+    fns = hp.make_hkd_fns()
     monkeypatch.setenv(AD_ENV, "1")
-    jfns, fns = jhp.make_hkd_fns(), hp.make_hkd_fns()
+    jfns = jhp.make_hkd_fns()
     monkeypatch.delenv(AD_ENV)
     jsolve = jax_batched(jfns, JaxSolverOptions(max_AL_iter=2,
                                                 max_DDP_iter=1),

@@ -1,17 +1,20 @@
 """The port's MHPC joint mode (`make_mhpc_fns(cfg, model)`, the JAX
-package's default) and its AD partials (CAFEMPC_WB_AD_PARTIALS=1), f64 on
-CPU, on the synthetic quadruped and the urdf-order synthetic bound
-reference at the small plan of the JAX package's
+package's default) and its WB partials against the JAX AD partials
+(CAFEMPC_WB_AD_PARTIALS=1 there), f64 on CPU, on the synthetic quadruped
+and the urdf-order synthetic bound reference at the small plan of the
+JAX package's
 tests/test_mhpc_segmented.py (WB 0.1 s, SRB 0.2 s, `n_steps_max=24`,
 `wb_block=16`).
 
-  * every joint-mode function over the whole plan, and the AD-mode "wb"
-    dynamics and reset partials over the WB segment, against the JAX
-    per-knot functions (`make_mhpc_fns(cfg, model)`; mode "wb" under
-    CAFEMPC_WB_AD_PARTIALS=1) jitted and vmapped over knots and a batch of
-    2, as in test_torch_mhpc_lq.py: 1e-10 on the error normalized by the
-    JAX value's max |value| (the AD mode's other functions are the JAX
-    per-knot "wb" functions that test_torch_mhpc_lq.py holds);
+  * every joint-mode function over the whole plan, and mode "wb"'s
+    dynamics and reset partials (the closed-form factored-KKT assembly)
+    over the WB segment, against the JAX per-knot functions
+    (`make_mhpc_fns(cfg, model)`; mode "wb" under
+    CAFEMPC_WB_AD_PARTIALS=1, forward-mode AD) jitted and vmapped over
+    knots and a batch of 2, as in test_torch_mhpc_lq.py: 1e-10 on the
+    error normalized by the JAX value's max |value| (the AD mode's other
+    functions are the JAX per-knot "wb" functions that
+    test_torch_mhpc_lq.py holds);
   * the port's joint solve against its segmented solve at
     tests/test_mhpc_segmented.py's tolerances, and gathered against masked
     resets on the joint functions (that file's
@@ -149,13 +152,12 @@ def test_joint_fns_match_jax(joint_pair, problem, name):
 
 
 @pytest.mark.parametrize("name", ["dyn_partials", "reset_partial"])
-def test_ad_partials_match_jax(urdf_path, model, problem, monkeypatch, name):
-    """Mode "wb" under CAFEMPC_WB_AD_PARTIALS=1 over the WB segment's
-    steps: the forward-mode Jacobians of the dynamics and of the reset
-    against the JAX AD-mode functions."""
+def test_ad_partials_match_jax(urdf_path, model, problem, name):
+    """Mode "wb"'s dynamics and reset partials over the WB segment's steps
+    against the JAX AD-mode functions: the forward-mode Jacobians of the
+    dynamics and of the reset."""
     p = problem
     wb = p["cfg"].wb_block
-    monkeypatch.setenv("CAFEMPC_WB_AD_PARTIALS", "1")
     fns = mp.make_mhpc_fns(p["cfg"], model, "wb")
     jf = _jax_fns(urdf_path, p["cfg"], "wb",
                   {"CAFEMPC_WB_AD_PARTIALS": "1"})
@@ -167,12 +169,6 @@ def test_ad_partials_match_jax(urdf_path, model, problem, monkeypatch, name):
     jsd = jax.tree.map(lambda a: a[:wb],
                        jax_to_device(p["plan_np"], dtype=jnp.float64).step)
     _close(got, _jax_eval(getattr(jf, name), args, jsd), name)
-    # and the analytic partials they replace, to the same tolerance
-    monkeypatch.delenv("CAFEMPC_WB_AD_PARTIALS")
-    plain = getattr(mp.make_mhpc_fns(p["cfg"], model, "wb"), name)(
-        *[torch.as_tensor(a) for a in args], type(sd)(*[a[:wb] for a in sd]))
-    _close(got, tuple(t.numpy() for t in plain) if isinstance(plain, tuple)
-           else plain.numpy(), name)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ MODULES = [
     "cafempc_tpu_torch.parallel.mesh",
     "cafempc_tpu_torch.parallel.knot_riccati",
     "cafempc_tpu_torch.runtime.warm_start",
+    "cafempc_tpu_torch.runtime.staged",
     "cafempc_tpu_torch.runtime.mpc",
     "cafempc_tpu_torch.runtime.mhpc_runtime",
     "cafempc_tpu_torch.comms",

@@ -54,7 +54,8 @@ from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
 from cafempc_tpu_torch.reference.synthetic import (
     synthetic_bound_reference, synthetic_bound_reference_urdf)
 from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
-from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime, solver_info_message
+from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
+from cafempc_tpu_torch.runtime.staged import solver_info_message
 from cafempc_tpu_torch.solver import plan as pl
 from cafempc_tpu_torch.solver.hsddp import make_solver
 from cafempc_tpu_torch.solver.options import SolverOptions

@@ -7,16 +7,14 @@ gathered resets, both on the sweep and linroll twins, with the tracer
 off, then with it on: off, nothing is recorded; on, one `hsddp.solve`
 root a call with every stage under it; the `hsddp.sync` counter equals
 the host syncs counted by a monkeypatch; the answers are bit-identical.
-An `HKDMPCRuntime` update is one `runtime.update` root with its six
-stages in order, and its `timing` comes from their clocks.  Both WB
-partial functions (jvp and CF paths) nest their four stages.  A B=2 f64
-barrel-roll solve (1 AL x 1 DDP) off, then on: its `wb.partials`,
-`wb.impulse_partials` and `br.td_con` spans fire under its root, the
-`wb.cf_knots` counter adds the knots each closed-form linearization
-takes, no forward-mode Jacobian is taken, and the answers are
-bit-identical; under CAFEMPC_WB_CF=0 its `wbm.ad_partials` and
-`wbm.impact_partial` spans fire instead and the `wbm.ad_directions`
-counter adds 48 (36) directions x samples a call.
+An `HKDMPCRuntime` and an `MHPCRuntime` update (a CPU f64 cascade) are
+each one `runtime.update` root with its six stages in order, and their
+`timing` comes from their clocks.  Both WB partial functions nest their
+four stages.  A B=2 f64 barrel-roll solve (1 AL x 1 DDP) off, then on:
+its `wb.partials`, `wb.impulse_partials` and `br.td_con` spans fire under
+its root, the `wb.cf_knots` counter adds the knots each closed-form
+linearization takes, no forward-mode Jacobian is taken, and the answers
+are bit-identical.
 
 On the card (marked `gpu`, skipped without one): the device event pairs
 resolve to positive stream ms, and under a profile with CPU and CUDA
@@ -37,9 +35,13 @@ from cafempc_tpu_torch.parallel.mesh import broadcast_batch
 from cafempc_tpu_torch.problems import barrel_roll as br
 from cafempc_tpu_torch.problems import hkd_fused as hf
 from cafempc_tpu_torch.problems import hkd_problem as hp
-from cafempc_tpu_torch.reference.quad_reference import QuadReference
+from cafempc_tpu_torch.problems import mhpc_problem as mp
+from cafempc_tpu_torch.reference.quad_reference import (QuadReference,
+                                                        wb_state_ref_at)
 from cafempc_tpu_torch.reference.synthetic import (
-    synthetic_bound_reference, write_synthetic_br_settings)
+    synthetic_bound_reference, synthetic_bound_reference_urdf,
+    write_synthetic_br_settings)
+from cafempc_tpu_torch.runtime.mhpc_runtime import MHPCRuntime
 from cafempc_tpu_torch.runtime.mpc import HKDMPCRuntime
 from cafempc_tpu_torch.solver import hsddp
 from cafempc_tpu_torch.solver.options import SolverOptions
@@ -126,10 +128,10 @@ def traced():
                off_count=tracing.count("hsddp.sync"))
     syncs = []
     real_n_set, real_sites = hsddp._n_set, hsddp.reset_sites
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(hsddp, "_n_set",
-                   lambda m: syncs.append(1) or real_n_set(m))
-        mp.setattr(hsddp, "reset_sites", lambda *a: (
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(hsddp, "_n_set",
+                      lambda m: syncs.append(1) or real_n_set(m))
+        patch.setattr(hsddp, "reset_sites", lambda *a: (
             lambda s: syncs.extend([1] * len(s)) or s)(real_sites(*a)))
         tracing.enable()
         try:
@@ -200,15 +202,36 @@ def test_traced_solve(traced, case):
     CASES[case](traced)
 
 
-def test_runtime_update_spans(tracer):
+def _hkd_runtime(tmp):
+    """An HKDMPCRuntime at the 0.3 s plan, 2 AL, and its initial state."""
+    rt = HKDMPCRuntime(_qr(), hp.HKDConfig(**PLAN),
+                       SolverOptions(max_AL_iter=2), device="cpu")
+    return rt, np.asarray(_solve_args(torch.device("cpu"))[2][0])
+
+
+def _mhpc_runtime(tmp):
+    """An MHPCRuntime on the synthetic quadruped at a small cascade (WB
+    0.1 s, SRB 0.2 s), 1 AL x 1 DDP, and the reference's initial
+    state."""
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
+    qr.initialize(0.4)
+    model = wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp)), "cpu", torch.float64)
+    rt = MHPCRuntime(qr, mp.MHPCConfig(plan_dur_wb=0.1, plan_dur_srb=0.2,
+                                       n_steps_max=24, wb_block=16),
+                     SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                     model=model, device="cpu")
+    return rt, wb_state_ref_at(qr, 0.0)
+
+
+@pytest.mark.parametrize("runtime", [_hkd_runtime, _mhpc_runtime],
+                         ids=["hkd", "mhpc"])
+def test_runtime_update_spans(tracer, tmp_path, one_torch_thread, runtime):
     """An untraced initialize records nothing and still fills `timing`;
     a traced update is one `runtime.update` root with its six stages in
     order, the solve under `runtime.solve`, and `timing` from their
     clocks."""
-    qr = _qr()
-    rt = HKDMPCRuntime(qr, hp.HKDConfig(**PLAN), SolverOptions(max_AL_iter=2),
-                       device="cpu")
-    x = np.asarray(_solve_args(torch.device("cpu"))[2][0])
+    rt, x = runtime(tmp_path)
     rt.initialize(x)
     assert tracer.spans() == [] and set(rt.timing) == {
         "build_ms", "solve_ms", "fetch_ms"}
@@ -240,10 +263,10 @@ def wb_model(tmp_path_factory):
     return wb_lane.load_lane_model(urdf, "cpu", torch.float64)
 
 
-@pytest.mark.parametrize("use_cf", [False, True])
-def test_wb_partials_spans(tracer, wb_model, use_cf):
-    """Both WB partial functions are one span each with the four stages
-    under it in order, on the jvp and on the CF path."""
+@pytest.mark.parametrize("which", ["contact", "impulse"])
+def test_wb_partials_spans(tracer, wb_model, which):
+    """Each WB partial function is one span with the four stages under it
+    in order, and counts its knots in `wb.cf_knots`."""
     rng = np.random.default_rng(3)
     q = torch.zeros(3, 18, dtype=torch.float64)
     q[:, 2] = 0.25
@@ -254,30 +277,32 @@ def test_wb_partials_spans(tracer, wb_model, use_cf):
     c = torch.tensor([[1.0, 1, 1, 1], [1, 0, 0, 1], [0, 1, 1, 0]],
                      dtype=torch.float64)
     tracer.enable()
-    wb_lane.contact_kkt_dynamics_partials_lane(wb_model, q, v, tau, c, 10.0,
-                                               use_cf=use_cf)
-    wb_lane.impulse_dynamics_partials_lane(wb_model, q, v, c, use_cf=use_cf)
+    if which == "contact":
+        wb_lane.contact_kkt_dynamics_partials_lane(wb_model, q, v, tau, c,
+                                                   10.0)
+    else:
+        wb_lane.impulse_dynamics_partials_lane(wb_model, q, v, c)
     tracer.disable()
     spans = tracer.spans()
     roots = [s for s in spans if s.parent is None]
-    assert [s.name for s in roots] == ["wb.partials", "wb.impulse_partials"]
-    for r in roots:
-        assert [s.name for s in spans if s.parent == r.id] == WB_STAGES
-        assert len(_under(spans, r.id)) == len(WB_STAGES)
+    assert [s.name for s in roots] == [
+        "wb.partials" if which == "contact" else "wb.impulse_partials"]
+    r = roots[0]
+    assert [s.name for s in spans if s.parent == r.id] == WB_STAGES
+    assert len(_under(spans, r.id)) == len(WB_STAGES)
+    assert tracer.counts()[r.id] == {"wb.cf_knots": 3}
 
 
-# the spans of a barrel-roll solve on each path of its WB linearization:
-# the default (the closed-form bundle) and CAFEMPC_WB_CF=0 (forward-mode
-# AD); the first two are the partials, taken inside the LQ stage
-BR_SPANS = {"1": ("wb.partials", "wb.impulse_partials", "br.td_con"),
-            "0": ("wbm.ad_partials", "wbm.impact_partial", "br.td_con")}
+# the spans of a barrel-roll solve; the first two are the WB partials,
+# taken inside the LQ stage
+BR_SPANS = ("wb.partials", "wb.impulse_partials", "br.td_con")
 
 
-def _trace_br(tmp_path_factory, cf):
+@pytest.fixture(scope="module")
+def br_traced(tmp_path_factory, one_torch_thread):
     """A B=2 f64 barrel-roll solve (pushed body velocities, 1 AL x 1 DDP)
-    with its functions made under CAFEMPC_WB_CF=cf ("1": unset), with
-    the tracer off, then on; the inputs of the forward-mode Jacobians and
-    of the closed-form bundles recorded by wrappers of
+    with the tracer off, then on; the inputs of the forward-mode Jacobians
+    and of the closed-form bundles recorded by wrappers of
     `rbda.batched_jacobian` and `wb_lane.cf_bundle`."""
     _fresh()
     tmp = tmp_path_factory.mktemp("br")
@@ -291,27 +316,21 @@ def _trace_br(tmp_path_factory, cf):
                                          "cpu", torch.float64)
     args = (plan, broadcast_batch(pen, B), torch.as_tensor(x0),
             broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B))
-    with pytest.MonkeyPatch.context() as mp:
-        if cf == "1":
-            mp.delenv("CAFEMPC_WB_CF", raising=False)
-        else:
-            mp.setenv("CAFEMPC_WB_CF", cf)
-        fns = br.make_barrel_roll_fns(model)
-    solve = hsddp.make_solver(fns,
+    solve = hsddp.make_solver(br.make_barrel_roll_fns(model),
                               SolverOptions(max_AL_iter=1, max_DDP_iter=1),
                               fused_riccati=True, parallel_line_search=False,
                               max_resets=16)
     off = solve(*args)
-    out = dict(cf=cf, off=off, off_spans=tracing.spans(),
+    out = dict(off=off, off_spans=tracing.spans(),
                off_counts=tracing.counts())
     shapes, bundles = [], []
     jac, bundle = rbda.batched_jacobian, wb_lane.cf_bundle
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(rbda, "batched_jacobian",
-                   lambda f, x: shapes.append(tuple(x.shape)) or jac(f, x))
-        mp.setattr(wb_lane, "cf_bundle",
-                   lambda m, q: bundles.append(tuple(q.shape))
-                   or bundle(m, q))
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(rbda, "batched_jacobian",
+                      lambda f, x: shapes.append(tuple(x.shape)) or jac(f, x))
+        patch.setattr(wb_lane, "cf_bundle",
+                      lambda m, q: bundles.append(tuple(q.shape))
+                      or bundle(m, q))
         tracing.enable()
         try:
             on = solve(*args)
@@ -321,16 +340,6 @@ def _trace_br(tmp_path_factory, cf):
                counts=tracing.counts())
     _fresh()
     return out
-
-
-@pytest.fixture(scope="module")
-def br_traced(tmp_path_factory, one_torch_thread):
-    return _trace_br(tmp_path_factory, "1")
-
-
-@pytest.fixture(scope="module")
-def br_traced_ad(tmp_path_factory, one_torch_thread):
-    return _trace_br(tmp_path_factory, "0")
 
 
 def _br_off(t):
@@ -343,16 +352,14 @@ def _br_spans(t):
     assert [s.name for s in roots] == ["hsddp.solve"]
     inside = _under(spans, roots[0].id)
     names = [s.name for s in inside]
-    for name in BR_SPANS[t["cf"]]:
+    for name in BR_SPANS:
         assert name in names, name
     lq = [s for s in inside if s.name == "hsddp.lq"]
     for s in inside:
-        if s.name in BR_SPANS[t["cf"]][:2]:
+        if s.name in BR_SPANS[:2]:
             # the partials are taken inside the LQ stage
             assert any(q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
                        for q in lq), s.name
-    other = BR_SPANS["0" if t["cf"] == "1" else "1"][:2]
-    assert not set(other) & set(names)
     assert all(s.device_ms is None for s in inside)
 
 
@@ -360,28 +367,15 @@ def _br_directions(t):
     root = next(s.id for s in t["spans"] if s.parent is None)
     names = [s.name for s in t["spans"]]
     counts = t["counts"][root]
-    if t["cf"] == "1":
-        # one bundle a linearization, over every knot it takes; no
-        # forward-mode Jacobian
-        assert t["shapes"] == [] and "wbm.ad_directions" not in counts
-        assert len(t["bundles"]) == names.count("wb.partials") \
-            + names.count("wb.impulse_partials") > 0
-        want = sum(math.prod(sh[:-1]) for sh in t["bundles"])
-        assert counts["wb.cf_knots"] == want
-        # the dynamics' linearization runs over every step of every
-        # scenario
-        assert (B, 130, 18) in t["bundles"]
-        return
-    assert t["bundles"] == [] and "wb.cf_knots" not in counts
-    want = sum(sh[-1] * math.prod(sh[:-1]) for sh in t["shapes"])
-    assert counts["wbm.ad_directions"] == want
-    # one Jacobian a span, 48 directions in the dynamics', 36 in the
-    # impact's
-    dirs = [sh[-1] for sh in t["shapes"]]
-    assert dirs.count(48) == names.count("wbm.ad_partials") > 0
-    assert dirs.count(36) == names.count("wbm.impact_partial") > 0
-    assert sorted(set(dirs)) == [36, 48]
-    assert (B, 130, 48) in t["shapes"]
+    # one bundle a linearization, over every knot it takes; no forward-mode
+    # Jacobian
+    assert t["shapes"] == []
+    assert len(t["bundles"]) == names.count("wb.partials") \
+        + names.count("wb.impulse_partials") > 0
+    want = sum(math.prod(sh[:-1]) for sh in t["bundles"])
+    assert counts["wb.cf_knots"] == want
+    # the dynamics' linearization runs over every step of every scenario
+    assert (B, 130, 18) in t["bundles"]
 
 
 def _br_identical(t):
@@ -403,14 +397,6 @@ def test_traced_barrel_roll(br_traced, case):
     (B x 130 for the dynamics'), and no forward-mode Jacobian is taken;
     the same answers bit for bit."""
     BR_CASES[case](br_traced)
-
-
-@pytest.mark.parametrize("case", sorted(BR_CASES))
-def test_traced_barrel_roll_ad(br_traced_ad, case):
-    """The same under CAFEMPC_WB_CF=0: the WB AD partials' spans, and
-    `wbm.ad_directions` the directions x samples of every Jacobian taken
-    (48 x B x 130 for the dynamics')."""
-    BR_CASES[case](br_traced_ad)
 
 
 # ---- on the card --------------------------------------------------------

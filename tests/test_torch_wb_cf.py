@@ -1,11 +1,19 @@
-"""The closed-form FK derivative bundle of the port's knot-batched
-whole-body linearization (`wb_lane.cf_bundle`, the port's default,
-CAFEMPC_WB_CF=1 in the JAX package) against the JAX package's, with the
-knot axis first in the port and last in the JAX module, and against the
-port's jvp path (CAFEMPC_WB_CF=0), f64 on CPU, on the synthetic
-quadruped.  Tolerances: tests/test_wb_lane.py's (1e-12 for the
-bundle, 1e-9 for the partials).  The JAX functions run op by op (their
-unrolled lane Cholesky takes XLA minutes to compile)."""
+"""The port's one whole-body linearization, the closed-form FK derivative
+bundle (`wb_lane.cf_bundle`) under the factored-KKT assembly, against the
+JAX package's two lane routes, its bundle (CAFEMPC_WB_CF=1 there) and its
+jvp directions (its default), with the knot axis first in the port and
+last in the JAX module, f64 on CPU, on the synthetic quadruped.
+Tolerances: tests/test_wb_lane.py's (1e-12 for the bundle, 1e-9 for the
+partials).  The JAX functions run op by op (their unrolled lane Cholesky
+takes XLA minutes to compile).
+
+The JAX package's linearization switches (CAFEMPC_WB_CF,
+CAFEMPC_WB_AD_PARTIALS, CAFEMPC_HKD_AD_PARTIALS) change nothing in the
+port: functions made with one set take the same route, and give the same
+partials bit for bit, as functions made without it.
+"""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +21,9 @@ import torch
 
 from cafempc_tpu.models import wb_lane as jwl
 from cafempc_tpu_torch.convert import from_numpy
-from cafempc_tpu_torch.models import synthetic_robot, wb_lane
+from cafempc_tpu_torch.models import hkd, synthetic_robot, wb_lane
 from cafempc_tpu_torch.problems import barrel_roll as br
+from cafempc_tpu_torch.problems import hkd_problem as hp
 from cafempc_tpu_torch.problems import mhpc_problem as mp
 from cafempc_tpu_torch.reference.quad_reference import QuadReference
 from cafempc_tpu_torch.reference.synthetic import (
@@ -95,34 +104,38 @@ def test_cf_bundle_leading_dims(models, knots):
 @pytest.mark.parametrize("which", ["contact", "impulse"])
 def test_cf_partials_match_jax_and_default(models, knots, monkeypatch,
                                            which):
-    """The CF contact-KKT and impulse partials against the JAX CF partials
-    (CAFEMPC_WB_CF=1) and against the port's jvp path, 1e-9."""
+    """The port's contact-KKT and impulse partials against the JAX CF
+    partials (CAFEMPC_WB_CF=1) and against the JAX jvp partials (its
+    default, CAFEMPC_WB_CF unset), 1e-9."""
     jm, m = models
     d, t = knots
     j = _jax(d)
+
+    def jax_partials():
+        if which == "contact":
+            return jwl.contact_kkt_dynamics_partials_lane(
+                jm, j["q"], j["v"], j["tau"], j["c"], BG_ALPHA)
+        return jwl.impulse_dynamics_partials_lane(jm, j["q"], j["v"],
+                                                  j["c"])
     monkeypatch.setenv("CAFEMPC_WB_CF", "1")
+    want_cf = jax_partials()
+    monkeypatch.delenv("CAFEMPC_WB_CF")
+    want_jvp = jax_partials()
     if which == "contact":
-        want = jwl.contact_kkt_dynamics_partials_lane(
-            jm, j["q"], j["v"], j["tau"], j["c"], BG_ALPHA)
         got = wb_lane.contact_kkt_dynamics_partials_lane(
             m, t["q"], t["v"], t["tau"], t["c"], BG_ALPHA)
-        default = wb_lane.contact_kkt_dynamics_partials_lane(
-            m, t["q"], t["v"], t["tau"], t["c"], BG_ALPHA, use_cf=False)
     else:
-        want = jwl.impulse_dynamics_partials_lane(jm, j["q"], j["v"], j["c"])
         got = wb_lane.impulse_dynamics_partials_lane(m, t["q"], t["v"],
                                                      t["c"])
-        default = wb_lane.impulse_dynamics_partials_lane(
-            m, t["q"], t["v"], t["c"], use_cf=False)
-    assert len(got) == len(want) == len(default)
-    for g, w, dflt in zip(got, want, default):
-        _close(g, np.moveaxis(np.asarray(w), -1, 0), 1e-9)
-        _close(g, dflt.numpy(), 1e-9)
+    assert len(got) == len(want_cf) == len(want_jvp)
+    for g, w_cf, w_jvp in zip(got, want_cf, want_jvp):
+        _close(g, np.moveaxis(np.asarray(w_cf), -1, 0), 1e-9)
+        _close(g, np.moveaxis(np.asarray(w_jvp), -1, 0), 1e-9)
 
 
-def _mhpc_site(m):
-    """(fns made by make_mhpc_fns' WB segment, X, U, step data) at 16
-    knots of a short cascade plan."""
+def _mhpc_site(m, mode):
+    """(fns made by make_mhpc_fns in `mode`, X, U, step data) at the 16
+    WB knots of a short cascade plan."""
     qr = QuadReference(synthetic_bound_reference_urdf(duration=1.0))
     qr.initialize(0.4)
     cfg = mp.MHPCConfig(plan_dur_wb=0.1, plan_dur_srb=0.2, n_steps_max=24,
@@ -133,7 +146,7 @@ def _mhpc_site(m):
     U = torch.as_tensor(rng.normal(0, 2.0, (1, 16, 12)))
     sd = from_numpy(plan_np, "cpu", F64).step
     sd = type(sd)(*[a[:16] for a in sd])
-    return (lambda: mp.make_mhpc_fns(cfg, m, "wb")), X, U, sd
+    return (lambda: mp.make_mhpc_fns(cfg, m, mode)), X, U, sd
 
 
 def _br_site(m, tmp):
@@ -154,38 +167,57 @@ def _br_site(m, tmp):
     return (lambda: br.make_barrel_roll_fns(m)), torch.as_tensor(X), U, sd
 
 
-def _check_switch(make, X, U, sd, monkeypatch):
-    """Functions made with CAFEMPC_WB_CF unset take the bundle after
-    CAFEMPC_WB_CF=0 is set, and their partials equal the other path's;
-    made under CAFEMPC_WB_CF=0 they never do, after it is gone."""
+def _hkd_site():
+    """(make_hkd_fns, X, U, step data) at 3 random knots of 2
+    scenarios."""
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, 3, 24)))
+    U = torch.as_tensor(rng.uniform(-10.0, 10.0, (2, 3, 24)))
+    c = (rng.random((3, 4)) > 0.5).astype(float)
+    sd = types.SimpleNamespace(dt=torch.full((3,), 0.01, dtype=F64),
+                               contact=torch.as_tensor(c),
+                               contact_next=torch.as_tensor(1.0 - c))
+    return hp.make_hkd_fns, X, U, sd
+
+
+SITES = {"mhpc_wb": lambda m, tmp: _mhpc_site(m, "wb"),
+         "mhpc_joint": lambda m, tmp: _mhpc_site(m, "joint"),
+         "br": _br_site, "hkd": lambda m, tmp: _hkd_site()}
+# (site, a JAX-package switch, its value off the JAX default)
+ROUTES = {"mhpc_wb-WB_CF": ("mhpc_wb", "CAFEMPC_WB_CF", "0"),
+          "mhpc_wb-WB_AD": ("mhpc_wb", "CAFEMPC_WB_AD_PARTIALS", "1"),
+          "mhpc_joint-WB_AD": ("mhpc_joint", "CAFEMPC_WB_AD_PARTIALS", "1"),
+          "mhpc_joint-WB_CF": ("mhpc_joint", "CAFEMPC_WB_CF", "0"),
+          "br-WB_CF": ("br", "CAFEMPC_WB_CF", "0"),
+          "hkd-HKD_AD": ("hkd", "CAFEMPC_HKD_AD_PARTIALS", "1")}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_one_linearization_route(urdf_path, tmp_path, monkeypatch, case):
+    """Functions made with a JAX-package switch set take the port's one
+    route, the closed-form bundle (`wb_lane.cf_bundle`; for HKD the closed
+    form `hkd.dynamics_partials`), as often as functions made without it,
+    and their dynamics and reset partials are the same bit for bit."""
+    site, env, value = ROUTES[case]
+    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
+    make, X, U, sd = SITES[site](m, tmp_path)
+    mod, name = (hkd, "dynamics_partials") if site == "hkd" \
+        else (wb_lane, "cf_bundle")
     calls = []
-    real = wb_lane.cf_bundle
-    monkeypatch.setattr(wb_lane, "cf_bundle",
-                        lambda *a: calls.append(1) or real(*a))
-    monkeypatch.delenv("CAFEMPC_WB_CF", raising=False)
-    cf_fns = make()
-    monkeypatch.setenv("CAFEMPC_WB_CF", "0")
-    got = cf_fns.dyn_partials(X, U, sd) + (cf_fns.reset_partial(X, sd),)
-    assert len(calls) == 2
-    other = make()
-    monkeypatch.delenv("CAFEMPC_WB_CF")
-    want = other.dyn_partials(X, U, sd) + (other.reset_partial(X, sd),)
-    assert len(calls) == 2
+    real = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv(env, value)
+    switched = make()
+    monkeypatch.delenv(env)
+    plain = make()
+
+    def partials(fns):
+        n0 = len(calls)
+        out = fns.dyn_partials(X, U, sd) + (fns.reset_partial(X, sd),)
+        return out, len(calls) - n0
+    got, n_got = partials(switched)
+    want, n_want = partials(plain)
+    assert n_got == n_want > 0
+    assert len(got) == len(want) == 5
     for g, w in zip(got, want):
-        scale = max(float(w.abs().max()), 1e-30)
-        assert float((g - w).abs().max()) / scale <= 1e-9
-
-
-def test_switch_is_read_where_the_fns_are_made(urdf_path, monkeypatch):
-    """make_mhpc_fns (the WB segment) reads CAFEMPC_WB_CF once
-    (`_check_switch`)."""
-    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
-    _check_switch(*_mhpc_site(m), monkeypatch)
-
-
-def test_switch_is_read_where_the_barrel_roll_fns_are_made(
-        urdf_path, tmp_path, monkeypatch):
-    """make_barrel_roll_fns reads CAFEMPC_WB_CF once (`_check_switch`):
-    "0" is the JAX package's forward-mode AD."""
-    m = wb_lane.load_lane_model(urdf_path, "cpu", F64)
-    _check_switch(*_br_site(m, tmp_path), monkeypatch)
+        assert torch.equal(g, w)
