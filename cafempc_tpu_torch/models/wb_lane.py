@@ -33,8 +33,10 @@ Spans (`utils/tracing.py`, host only): `wb.partials` around
 `impulse_dynamics_partials_lane`, and inside both `wb.kin` (the bundle and
 the KKT's primal pieces), `wb.kkt_solve` (`_kkt_schur_solve_lane`),
 `wb.directions` (the bundle's residual tangents) and `wb.tail` (the
-factored-KKT assembly).  The counter `wb.cf_knots` adds the knots each
-call linearizes.
+factored-KKT assembly); `wb.step` around the forward step,
+`wb_dynamics_lane` and `impulse_dynamics_lane`.  The counter `wb.cf_knots`
+adds the knots each call linearizes, `wb.step_knots` the knots each call
+steps.
 """
 import functools
 import math
@@ -158,6 +160,11 @@ def _dyn_terms(m, q, v, cmask3, bg_alpha):
 def _count_cf_knots(q):
     """`wb.cf_knots` += the knots of q [..., nd]."""
     tracing.count("wb.cf_knots", math.prod(q.shape[:-1]))
+
+
+def _count_step_knots(q):
+    """`wb.step_knots` += the knots of q [..., nd]."""
+    tracing.count("wb.step_knots", math.prod(q.shape[:-1]))
 
 
 class _CFBundle(NamedTuple):
@@ -394,13 +401,15 @@ def impulse_dynamics_lane(m, q, v, impact_mask, damping=1e-12):
     """Inelastic impact (rbda.impulse_dynamics / WBM.cpp:427-456):
     M(v+ - v) = Jm^T Lam, Jm v+ = 0, impact_mask [K, 4].  Returns
     (v_post [K, nd], impulse [K, 12])."""
-    cmask3, Sdiag = rbda._masks(impact_mask, damping)
-    Jw, Jv, Iw, J = _kin(m, q)
-    v_post, b = _kkt_schur_solve_lane(
-        rbda._mass_from_jacobians(m, Jw, Jv, Iw), J * cmask3[..., None],
-        Sdiag, _per_body_mv(m, Jw, Jv, Iw, v)[..., None],
-        torch.zeros_like(Sdiag)[..., None])
-    return v_post[..., 0], -b[..., 0] * cmask3
+    with tracing.span("wb.step"):
+        _count_step_knots(q)
+        cmask3, Sdiag = rbda._masks(impact_mask, damping)
+        Jw, Jv, Iw, J = _kin(m, q)
+        v_post, b = _kkt_schur_solve_lane(
+            rbda._mass_from_jacobians(m, Jw, Jv, Iw), J * cmask3[..., None],
+            Sdiag, _per_body_mv(m, Jw, Jv, Iw, v)[..., None],
+            torch.zeros_like(Sdiag)[..., None])
+        return v_post[..., 0], -b[..., 0] * cmask3
 
 
 def impulse_dynamics_partials_lane(m, q, v, impact_mask, damping=1e-12):
@@ -438,11 +447,13 @@ def wb_dynamics_lane(m, x, u, dt, contact, bg_alpha):
     """Forward-Euler WB step: x [K, 36], u [K, 12], dt [K], contact [K, 4].
     Returns (xnext [K, 36], grf [K, 12]); mirrors wbm.dynamics
     (WBM.cpp:17-32)."""
-    q, v = x[..., :NQ], x[..., NQ:]
-    tau = wbm._tau_full(u)
-    qdd, grf = contact_kkt_dynamics_lane(m, q, v, tau, contact, bg_alpha)
-    dtc = dt[..., None]
-    return torch.cat([q + v * dtc, v + qdd * dtc], -1), grf
+    with tracing.span("wb.step"):
+        q, v = x[..., :NQ], x[..., NQ:]
+        _count_step_knots(q)
+        tau = wbm._tau_full(u)
+        qdd, grf = contact_kkt_dynamics_lane(m, q, v, tau, contact, bg_alpha)
+        dtc = dt[..., None]
+        return torch.cat([q + v * dtc, v + qdd * dtc], -1), grf
 
 
 def wb_dyn_partials_lane(m, x, u, dt, contact, bg_alpha):

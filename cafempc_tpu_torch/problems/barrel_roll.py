@@ -26,6 +26,14 @@ demo's configuration); the port's demo gathers the plan's 5 reset steps
 for its kernel path (`make_solver(..., fused_riccati=True,
 parallel_line_search=False, max_resets=16)`), which gives the same solve.
 
+The forward step is the lane step (`models/wb_lane.py`), as in the MHPC
+cascade's WB segment: the dynamics from one FK pass and its jvp along v,
+with the Newton-Euler bias force and the Schur-complement KKT solve
+(`wb_dynamics_lane`), and the reset from one FK pass and the impulse KKT
+(`impulse_dynamics_lane`).  The JAX package steps with `wbm.dynamics` and
+`wbm.impact` (six FK passes, the bias force by AD of the mass matrix); the
+tests hold the port to them.
+
 The dynamics and impulse partials are the factored-KKT assembly on the
 closed-form FK derivative bundle (`models/wb_lane.py`): one forward pass,
 the KKT residual's q- and v-Jacobians in closed form, one multi-RHS
@@ -34,8 +42,8 @@ forward-mode AD through the whole step (`wbm.dynamics_partials`,
 `wbm.impact_partial`); the tests hold the port to it.
 
 Span (`utils/tracing.py`): `br.td_con` around the touchdown constraint
-(`term_con`) and around its partials (`term_con_partials`); the WB
-linearization's own spans are `models/wb_lane.py`'s.
+(`term_con`) and around its partials (`term_con_partials`); the WB step's
+and linearization's own spans are `models/wb_lane.py`'s.
 """
 import json
 import re
@@ -305,7 +313,7 @@ def make_barrel_roll_fns(model, bg_alpha=10.0) -> ProblemFns:
 
     def dyn(X, U, sd):
         dt, c = _bcast(X, sd.dt, sd.contact)
-        return wbm.dynamics(model, X, U, dt, c, bg_alpha)
+        return wb_lane.wb_dynamics_lane(model, X, U, dt, c, bg_alpha)
 
     def dyn_partials(X, U, sd):
         """A, B, C, D of `dyn` (JAX: jax.jacfwd through the step)."""
@@ -320,8 +328,11 @@ def make_barrel_roll_fns(model, bg_alpha=10.0) -> ProblemFns:
         """The impulse reset where a foot touches down, the identity
         elsewhere."""
         c, cn, has_impact = impact_masks(X, sd)
-        ximp, _ = wbm.impact(model, X, c, cn)
-        return torch.where(has_impact[..., None], ximp, X)
+        q = X[..., :NQ]
+        v_post, _ = wb_lane.impulse_dynamics_lane(model, q, X[..., NQ:],
+                                                  (1.0 - c) * cn)
+        return torch.where(has_impact[..., None], torch.cat([q, v_post], -1),
+                           X)
 
     def reset_partial(X, sd):
         """The Jacobian of `reset`: the impact's where a foot touches down,

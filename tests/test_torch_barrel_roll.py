@@ -13,6 +13,12 @@ written for the test:
     assembly) against each JAX route: the JAX barrel roll's `jacfwd`
     through the step and the JAX lane module's closed-form partials
     (CAFEMPC_WB_CF=1 there);
+  * the forward step, the lane step (`wb_lane.wb_dynamics_lane` and
+    `wb_lane.impulse_dynamics_lane`), against the port's AD step
+    (`wbm.dynamics`, `wbm.impact`) at 1e-12 in each of the 6 contact
+    modes and at each of the 5 reset transitions, on seeded perturbed
+    states [B, N]; a B=2 solve never reaches `rbda.contact_kkt_dynamics`
+    or `rbda.impulse_dynamics`;
   * the whole 131-knot solve at 1 AL x 2 DDP: the port gathers the 5
     reset steps (`max_resets=16`), the JAX solve selects dynamics or reset
     at every step (`make_solver(..., max_resets=None)`), both with the
@@ -37,7 +43,7 @@ from cafempc_tpu.solver.hsddp import make_solver as jax_make_solver
 from cafempc_tpu.solver.options import SolverOptions as JaxSolverOptions
 from cafempc_tpu.solver.plan import host_plan_to_device as jax_to_device
 from cafempc_tpu_torch.convert import from_numpy, to_numpy
-from cafempc_tpu_torch.models import synthetic_robot, wbm
+from cafempc_tpu_torch.models import rbda, synthetic_robot, wbm
 from cafempc_tpu_torch.ops import sweep as sweep_mod
 from cafempc_tpu_torch.parallel.mesh import broadcast_batch
 from cafempc_tpu_torch.problems import barrel_roll as br
@@ -254,6 +260,83 @@ def test_reset_is_the_identity_without_a_touchdown(models, plans, points):
     assert torch.equal(xr[~touch], X[0][~touch])
     assert torch.equal(P[~touch], torch.eye(36, dtype=F64).expand(3, 36, 36))
     assert not torch.equal(xr[touch, 18:], X[0][touch, 18:])
+
+
+LANE_TOL = 1e-12
+# (function, phase or reset site): the dynamics in each phase's contact
+# mode, the reset at each of the 5 phase transitions
+LANE_CASES = [("dyn", i) for i in range(6)] + [("reset", i) for i in range(5)]
+
+
+@pytest.mark.parametrize("which,i", LANE_CASES)
+def test_lane_step_matches_wbm_step(models, plans, which, i):
+    """`dyn` (the lane step) against `wbm.dynamics`, and `reset` (the lane
+    impulse where a foot touches down) against `wbm.impact` where one
+    does, at B x N = 3 x 8 seeded states near the initial trajectory of
+    the phase or reset site: 1e-12, normalized by the AD value's largest
+    entry."""
+    plan_np, _, Xbar0, _, _ = plans[0]
+    plan = from_numpy(plan_np, "cpu", F64)
+    st = plan_np.step
+    resets = np.flatnonzero(st.is_reset > 0)
+    rng = np.random.default_rng(100 + 10 * i + (which == "reset"))
+    if which == "dyn":
+        lo = 0 if i == 0 else resets[i - 1] + 1
+        hi = resets[i] if i < 5 else len(st.active)
+        idx = rng.choice(np.arange(lo, hi), 8)
+    else:
+        idx = np.full(8, resets[i])
+    X = Xbar0[idx] + rng.normal(0, 0.05, (3, 8, 36))
+    X[..., 18:] += rng.normal(0, 0.5, (3, 8, 18))
+    X = torch.as_tensor(X)
+    sd = type(plan.step)(*[a[torch.as_tensor(idx)] for a in plan.step])
+    fns = br.make_barrel_roll_fns(models[1])
+    c = sd.contact.expand(3, 8, 4)
+    if which == "dyn":
+        U = torch.as_tensor(rng.normal(0, 4.0, (3, 8, 12)))
+        assert torch.equal(c[0, 0], torch.as_tensor(br.CONTACTS[i]))
+        got = fns.dyn(X, U, sd)
+        want = wbm.dynamics(models[1], X, U, sd.dt.expand(3, 8), c, 10.0)
+    else:
+        cn = sd.contact_next.expand(3, 8, 4)
+        touch = ((cn - c) > 0.5).any(-1)
+        # the touchdowns are the transitions out of the two flights
+        assert touch.all() == touch.any() == (i in (2, 4))
+        ximp, _ = wbm.impact(models[1], X, c, cn)
+        got = (fns.reset(X, sd),)
+        want = (torch.where(touch[..., None], ximp, X),)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=LANE_TOL * max(1.0, w.abs().max()))
+
+
+def test_solve_never_reaches_the_ad_step(models, plans, monkeypatch):
+    """A B=2 solve with the AD step's KKT solves (`rbda.
+    contact_kkt_dynamics`, `rbda.impulse_dynamics`) made to raise: the
+    trial rollouts step with the lane forms, so it runs to its end."""
+    def refuse(*a, **k):
+        raise AssertionError("the barrel roll reached the AD step")
+    monkeypatch.setattr(rbda, "contact_kkt_dynamics", refuse)
+    monkeypatch.setattr(rbda, "impulse_dynamics", refuse)
+    plan_np, pen_np, Xbar0, Ubar0, _ = plans[0]
+    x = torch.zeros(1, 36, dtype=F64)
+    with pytest.raises(AssertionError, match="AD step"):
+        wbm.dynamics(models[1], x, torch.zeros(1, 12, dtype=F64),
+                     torch.full((1,), 0.01, dtype=F64),
+                     torch.ones(1, 4, dtype=F64))
+    plan, pen, Xbar0, Ubar0 = from_numpy((plan_np, pen_np, Xbar0, Ubar0),
+                                         "cpu", F64)
+    x0 = np.tile(br.initial_state(), (2, 1))
+    x0[:, 18:21] += np.random.default_rng(2).normal(0.0, 0.2, (2, 3))
+    solve = make_solver(br.make_barrel_roll_fns(models[1]),
+                        SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                        fused_riccati=True, parallel_line_search=False,
+                        max_resets=16)
+    res = solve(plan, broadcast_batch(pen, 2), torch.as_tensor(x0),
+                broadcast_batch(Xbar0, 2), broadcast_batch(Ubar0, 2))
+    assert torch.isfinite(res.cost).all() and torch.isfinite(res.Xbar).all()
+    assert (res.info.iters == 1).all()
 
 
 OPTS = dict(max_AL_iter=1, max_DDP_iter=2)

@@ -13,7 +13,9 @@ each one `runtime.update` root with its six stages in order, and their
 four stages.  A B=2 f64 barrel-roll solve (1 AL x 1 DDP) off, then on:
 its `wb.partials`, `wb.impulse_partials` and `br.td_con` spans fire under
 its root, the `wb.cf_knots` counter adds the knots each closed-form
-linearization takes, no forward-mode Jacobian is taken, and the answers
+linearization takes, no forward-mode Jacobian is taken, each forward
+trial's lane step (`wb.step` spans inside the rollouts) adds its B x 130
+steps and B x 16 gathered reset sites to `wb.step_knots`, and the answers
 are bit-identical.
 
 On the card (marked `gpu`, skipped without one): the device event pairs
@@ -293,9 +295,11 @@ def test_wb_partials_spans(tracer, wb_model, which):
     assert tracer.counts()[r.id] == {"wb.cf_knots": 3}
 
 
-# the spans of a barrel-roll solve; the first two are the WB partials,
-# taken inside the LQ stage
-BR_SPANS = ("wb.partials", "wb.impulse_partials", "br.td_con")
+# the spans of a barrel-roll solve
+BR_SPANS = ("wb.partials", "wb.impulse_partials", "wb.step", "br.td_con")
+# the knots a forward trial steps a scenario: every plan step, and the
+# reset sites gathered to max_resets
+BR_STEP_KNOTS = 130 + 16
 
 
 @pytest.fixture(scope="module")
@@ -303,7 +307,8 @@ def br_traced(tmp_path_factory, one_torch_thread):
     """A B=2 f64 barrel-roll solve (pushed body velocities, 1 AL x 1 DDP)
     with the tracer off, then on; the inputs of the forward-mode Jacobians
     and of the closed-form bundles recorded by wrappers of
-    `rbda.batched_jacobian` and `wb_lane.cf_bundle`."""
+    `rbda.batched_jacobian` and `wb_lane.cf_bundle`, and the traced
+    solve's forward trials by a wrapper of the problem's `dyn`."""
     _fresh()
     tmp = tmp_path_factory.mktemp("br")
     model = wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
@@ -316,11 +321,17 @@ def br_traced(tmp_path_factory, one_torch_thread):
                                          "cpu", torch.float64)
     args = (plan, broadcast_batch(pen, B), torch.as_tensor(x0),
             broadcast_batch(Xbar0, B), broadcast_batch(Ubar0, B))
-    solve = hsddp.make_solver(br.make_barrel_roll_fns(model),
+    trials = []
+    fns = br.make_barrel_roll_fns(model)
+    dyn = fns.dyn
+    fns = fns._replace(dyn=lambda X, U, sd: trials.append(X.shape[:-1])
+                       or dyn(X, U, sd))
+    solve = hsddp.make_solver(fns,
                               SolverOptions(max_AL_iter=1, max_DDP_iter=1),
                               fused_riccati=True, parallel_line_search=False,
                               max_resets=16)
     off = solve(*args)
+    trials.clear()
     out = dict(off=off, off_spans=tracing.spans(),
                off_counts=tracing.counts())
     shapes, bundles = [], []
@@ -336,8 +347,8 @@ def br_traced(tmp_path_factory, one_torch_thread):
             on = solve(*args)
         finally:
             tracing.disable()
-    out.update(on=on, shapes=shapes, bundles=bundles, spans=tracing.spans(),
-               counts=tracing.counts())
+    out.update(on=on, shapes=shapes, bundles=bundles, trials=trials,
+               spans=tracing.spans(), counts=tracing.counts())
     _fresh()
     return out
 
@@ -354,12 +365,15 @@ def _br_spans(t):
     names = [s.name for s in inside]
     for name in BR_SPANS:
         assert name in names, name
-    lq = [s for s in inside if s.name == "hsddp.lq"]
+    # the partials are taken inside the LQ stage, the forward step inside
+    # the rollouts
+    stages = {"wb.partials": ("hsddp.lq",),
+              "wb.impulse_partials": ("hsddp.lq",),
+              "wb.step": ("hsddp.rollout", "hsddp.line_search")}
     for s in inside:
-        if s.name in BR_SPANS[:2]:
-            # the partials are taken inside the LQ stage
+        if s.name in stages:
             assert any(q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
-                       for q in lq), s.name
+                       for q in inside if q.name in stages[s.name]), s.name
     assert all(s.device_ms is None for s in inside)
 
 
@@ -378,6 +392,17 @@ def _br_directions(t):
     assert (B, 130, 18) in t["bundles"]
 
 
+def _br_steps(t):
+    root = next(s.id for s in t["spans"] if s.parent is None)
+    names = [s.name for s in t["spans"]]
+    # each forward trial steps every plan step and every gathered reset
+    # site of every scenario: one `dyn` and one `reset`, each a `wb.step`
+    assert t["trials"] and all(sh == (B, 130) for sh in t["trials"])
+    assert names.count("wb.step") == 2 * len(t["trials"])
+    assert t["counts"][root]["wb.step_knots"] \
+        == len(t["trials"]) * BR_STEP_KNOTS * B
+
+
 def _br_identical(t):
     for f in ("cost", "Xbar", "Ubar", "K", "success"):
         assert torch.equal(getattr(t["on"], f), getattr(t["off"], f)), f
@@ -386,16 +411,18 @@ def _br_identical(t):
 
 
 BR_CASES = dict(off=_br_off, spans=_br_spans, directions=_br_directions,
-                identical=_br_identical)
+                steps=_br_steps, identical=_br_identical)
 
 
 @pytest.mark.parametrize("case", sorted(BR_CASES))
 def test_traced_barrel_roll(br_traced, case):
-    """Off: nothing recorded.  On: the closed-form WB partials' and the
-    touchdown constraint's spans under the solve's root, the partials
-    inside the LQ stage; `wb.cf_knots` is the knots of every bundle taken
-    (B x 130 for the dynamics'), and no forward-mode Jacobian is taken;
-    the same answers bit for bit."""
+    """Off: nothing recorded.  On: the closed-form WB partials', the lane
+    forward step's and the touchdown constraint's spans under the solve's
+    root, the partials inside the LQ stage and the step inside the
+    rollouts; `wb.cf_knots` is the knots of every bundle taken (B x 130
+    for the dynamics'), and no forward-mode Jacobian is taken;
+    `wb.step_knots` is (130 + 16) x B a forward trial; the same answers
+    bit for bit."""
     BR_CASES[case](br_traced)
 
 
