@@ -37,6 +37,7 @@ same partials and are the tests' references.
 """
 import dataclasses
 import json
+import math
 import re
 import types
 
@@ -49,6 +50,7 @@ from cafempc_tpu_torch.reference.quad_reference import (
 from cafempc_tpu_torch.solver.hsddp import ProblemFns, SegmentedFns
 from cafempc_tpu_torch.solver.plan import (KnotData, KnotPlan,
                                            PenaltyParams, StepData)
+from cafempc_tpu_torch.utils import tracing
 
 XS, US, YS = 36, 12, 12
 NQ = 18
@@ -735,7 +737,10 @@ def _make_wb_fns(cfg: MHPCConfig, lm):
 
 def _make_srb_fns(cfg: MHPCConfig):
     """The SRB tail's batched functions on the embedded 12-dim body state
-    (mhpc_problem.py:419-425, 500-537, 604-615, 698-740, 810-817)."""
+    (mhpc_problem.py:419-425, 500-537, 604-615, 698-740, 810-817).  Spans
+    (`utils/tracing.py`, host only): `srb.partials` around `dyn_partials`,
+    `srb.step` around `dyn`; the counters `srb.lin_knots` and
+    `srb.step_knots` add the knots each call linearizes and steps."""
     q36, qf36 = np.zeros(XS), np.zeros(XS)
     q36[BODY_DIMS], qf36[BODY_DIMS] = cfg.srb_q, cfg.srb_qf
     consts = _Consts(
@@ -756,25 +761,30 @@ def _make_srb_fns(cfg: MHPCConfig):
     def dyn(X, U, sd):
         """Forward-Euler SRB step at the body dims (SRBM.h:43-49); the dead
         dims are zero."""
-        x12, dt, pfr, rc = body(X, sd)
-        xn = x12 + dt[..., None] * srb.dynamics_continuous(x12, U, pfr, rc)
-        z = X.new_zeros(X.shape[:-1] + (12,))
-        return (torch.cat([xn[..., :6], z, xn[..., 6:], z], -1),
-                X.new_zeros(X.shape[:-1] + (YS,)))
+        with tracing.span("srb.step"):
+            tracing.count("srb.step_knots", math.prod(X.shape[:-1]))
+            x12, dt, pfr, rc = body(X, sd)
+            xn = x12 + dt[..., None] * srb.dynamics_continuous(x12, U, pfr,
+                                                               rc)
+            z = X.new_zeros(X.shape[:-1] + (12,))
+            return (torch.cat([xn[..., :6], z, xn[..., 6:], z], -1),
+                    X.new_zeros(X.shape[:-1] + (YS,)))
 
     def dyn_partials(X, U, sd):
         """SRB Jacobians on the 12-dim core, embedded at the body dims
         (SRBM.h:66-75 + StateProjection)."""
-        x12, dt, pfr, rc = body(X, sd)
-        A12, B12 = srb.dynamics_partials(x12, U, pfr, rc, dt)
-        lead = X.shape[:-1]
-        b = body_dims(X)
-        A = X.new_zeros(lead + (XS, XS))
-        A[..., b[:, None], b[None, :]] = A12
-        Bm = X.new_zeros(lead + (XS, US))
-        Bm[..., b, :] = B12
-        return (A, Bm, X.new_zeros(lead + (YS, XS)),
-                X.new_zeros(lead + (YS, US)))
+        with tracing.span("srb.partials"):
+            tracing.count("srb.lin_knots", math.prod(X.shape[:-1]))
+            x12, dt, pfr, rc = body(X, sd)
+            A12, B12 = srb.dynamics_partials(x12, U, pfr, rc, dt)
+            lead = X.shape[:-1]
+            b = body_dims(X)
+            A = X.new_zeros(lead + (XS, XS))
+            A[..., b[:, None], b[None, :]] = A12
+            Bm = X.new_zeros(lead + (XS, US))
+            Bm[..., b, :] = B12
+            return (A, Bm, X.new_zeros(lead + (YS, XS)),
+                    X.new_zeros(lead + (YS, US)))
 
     def reset(X, sd):
         return X

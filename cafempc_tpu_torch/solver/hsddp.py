@@ -32,7 +32,12 @@ dimension B, plan tensors (shared by all scenarios) carry none.
     sequential search and of the initial rollout;
   * DDP inner and AL outer loops.
 
-Loop semantics follow the vmapped JAX program exactly: each `while` runs
+Loop semantics follow the vmapped JAX program exactly, but for one
+departure on purpose: the sequential line search counts its trials in
+double (`_n_steps`), as the C++ reference's loop steps its eps, so that a
+float32 solve tries the same step sizes as a float64 one; the JAX
+package's float32 search tests its float32 eps and ends one trial early
+(0.1**3 rounds to float32(1e-3)).  Each `while` runs
 while ANY scenario's condition holds, and a scenario whose condition is
 false keeps its carry unchanged (`tree_where`), iteration counters
 included.  One host sync per loop test (`_n_set`), which fetches how many
@@ -446,14 +451,20 @@ def _per_lane(v):
     return v[:, None, None] if v.dim() == 1 else v[:, None, :]
 
 
-def _n_candidates(opts):
-    """All backtracking step sizes the sequential search could visit:
-    1, alpha, alpha^2, ... while above ls_eps_min (hsddp.py:1005-1011)."""
+def _n_steps(opts, slack):
+    """The backtracking step sizes 1, alpha, alpha^2, ... above
+    ls_eps_min * (1 + slack), counted in double whatever the solve's
+    dtype.  The sequential search takes slack 0, the C++ reference's
+    double loop (MultiPhaseDDP.cpp:95-133): 0.1**3 = 1.0000000000000002e-3
+    > 1e-3, so four trials at the default options.  The parallel search
+    keeps the JAX package's 1e-12 slack (hsddp.py:1005-1011), which
+    counts three candidates there: its step set lacks the sequential
+    search's last, smallest step."""
     n, e = 0, 1.0
-    while e > opts.ls_eps_min * (1.0 + 1e-12) and n < 64:
+    while e > opts.ls_eps_min * (1.0 + slack) and n < 64:
         n += 1
         e *= opts.alpha
-    return max(n, 1)
+    return n
 
 
 def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
@@ -561,7 +572,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
     sweep_kernel = sweep_mod.sweep_reference if plain_ops else sweep_mod.sweep
     linroll_kernel = (linroll_mod.linroll_reference if plain_ops
                       else linroll_mod.linroll)
-    n_ls = _n_candidates(opts)
+    n_ls = max(_n_steps(opts, 1e-12), 1)
+    n_trials = _n_steps(opts, 0.0)
 
     # ---------------- rollout ----------------------------------------
     def step_sim(plan, sites, X, U, sd):
@@ -1034,8 +1046,8 @@ def make_solver(fns, opts: SolverOptions, *, all_shooting=True,
              torch.zeros_like(alive), cost0, feas0, merit0)
 
         def cond(c):
-            _, _, eps, _, success, _, _, _ = c
-            return alive & (~success) & (eps > opts.ls_eps_min)
+            _, _, _, it, success, _, _, _ = c
+            return alive & (~success) & (it < n_trials)
 
         active = cond(c)
         n_act = _n_set(active)

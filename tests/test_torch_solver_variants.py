@@ -16,6 +16,10 @@ the JAX package's `make_solver`, f64 on CPU, with the same keywords:
   (`opts.MS=False`, `all_shooting=False`).  Xbar and Ubar to atol 1e-7,
   the cost to rtol 1e-9, iteration counts equal (measured: Xbar <= 8.2e-13,
   Ubar <= 4.2e-12, cost <= 3.5e-16 relative);
+* the sequential line search's trials, counted in double: a fused
+  trial hook that rejects every trial sees eps = 1, 0.1, 0.01 and 0.001
+  in float32 as in float64, and in float64 the same trials and
+  `ls_iters` as the JAX package's search under that hook;
 * the reset cap: a plan with one reset step more than `max_resets` is
   refused in the gathered mode, and solved in the masked mode, which
   agrees with the fused HKD trial's forward pass;
@@ -40,6 +44,7 @@ import torch
 
 from cafempc_tpu.models import wbm as jwbm
 from cafempc_tpu.parallel.mesh import make_batched_solver as jax_batched
+from cafempc_tpu.problems import hkd_fused as jhf
 from cafempc_tpu.problems import hkd_problem as jhp
 from cafempc_tpu.problems import mhpc_problem as jmp
 from cafempc_tpu.solver import hsddp as jhs
@@ -323,6 +328,75 @@ def test_hkd_solve_matches_jax(hkd, case):
     got = make_batched_solver(hp.make_hkd_fns(), SolverOptions(**opts),
                               reg_floor=1e-3, **kw)(*_port_args(hkd))
     _assert_same_solve(to_numpy(got), jax.tree.map(np.asarray, want))
+
+
+
+
+def _jax_rejected_trials(problem):
+    """The JAX package's f64 sequential search under a fused trial hook
+    that rejects every trial, one unbatched solve a scenario (so the
+    hook's trial op takes its plain JAX fallback): the eps of each
+    line-search trial, and `ls_iters`."""
+    plan_np, pen_np, Xbar0, Ubar0, x0 = problem
+    real, seen = jhf.make_hkd_fused_forward(), []
+
+    def rejecting(plan, pen, tr, x0, eps):
+        jax.debug.callback(lambda e: seen.append(float(e)), eps,
+                           ordered=True)
+        out = real(plan, pen, tr, x0, eps)
+        return out[:-1] + (jnp.zeros_like(out[-1]),)
+    solve = jax.jit(jhs.make_solver(
+        jhp.make_hkd_fns(), JaxSolverOptions(max_AL_iter=1, max_DDP_iter=1),
+        fused_forward=rejecting, parallel_line_search=False,
+        reg_floor=1e-3, trim_output=True))
+    args = _jax_args(problem)
+    eps, ls_iters = [], []
+    for b in range(B):
+        seen.clear()
+        res = solve(args[0], jax.tree.map(lambda a: a[b], args[1]),
+                    args[2][b], args[3][b], args[4][b])
+        jax.effects_barrier()
+        eps.append([e for e in seen if e > 0])    # 0: the first rollout
+        ls_iters.append(int(res.info.ls_iters))
+    return eps, ls_iters
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sequential_line_search_steps_eps_in_double(hkd, dtype):
+    """A fused forward hook that rejects every trial of the line search:
+    the sequential search visits eps = 1, 0.1, 0.01 and 0.001, as the
+    reference's double loop does at the default alpha and ls_eps_min,
+    in float32 as in float64 (in float32, 0.1**3 rounds to
+    float32(1e-3), and a test of eps itself would stop at 0.01).  In
+    float64 the trials and `ls_iters` equal the JAX package's search
+    under the same hook."""
+    dt = getattr(torch, dtype)
+    plan_np, pen_np, Xbar0, Ubar0, x0 = hkd
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, x0, Xbar0, Ubar0), "cpu", dt)
+    real, seen = hf.make_hkd_fused_forward(), []
+
+    def rejecting(plan, pen, tr, x0, eps, plain_ops=False):
+        out = real(plan, pen, tr, x0, eps, plain_ops=plain_ops)
+        eps = torch.as_tensor(eps, dtype=dt).expand(x0.shape[0])
+        if not (eps > 0).any():
+            return out
+        seen.append(eps.tolist())
+        return out[:-1] + (torch.zeros_like(out[-1]),)
+    solve = make_solver(hp.make_hkd_fns(),
+                        SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                        fused_forward=rejecting, parallel_line_search=False,
+                        reg_floor=1e-3, plain_ops=True)
+    res = solve(plan, broadcast_batch(pen, B), x0, broadcast_batch(Xbar0, B),
+                broadcast_batch(Ubar0, B))
+    assert hsddp._n_steps(SolverOptions(), 0.0) == 4
+    np.testing.assert_allclose(seen, [[e] * B for e in (1, 0.1, 0.01, 1e-3)],
+                               rtol=1e-6)
+    assert res.info.ls_iters.tolist() == [4] * B
+    if dt == F64:
+        want_eps, want_ls = _jax_rejected_trials(hkd)
+        np.testing.assert_array_equal(np.transpose(seen), want_eps)
+        assert res.info.ls_iters.tolist() == want_ls
 
 
 def test_reset_cap_raises_and_masked_resets_match_fused_trial(hkd):

@@ -16,7 +16,12 @@ its root, the `wb.cf_knots` counter adds the knots each closed-form
 linearization takes, no forward-mode Jacobian is taken, each forward
 trial's lane step (`wb.step` spans inside the rollouts) adds its B x 130
 steps and B x 16 gathered reset sites to `wb.step_knots`, and the answers
-are bit-identical.
+are bit-identical.  A B=2 f64 cascade solve (40 WB and 40 SRB steps, 1 AL
+x 1 DDP) off, then on: one `srb.partials` span a call of the SRB tail's
+linearization (inside the LQ stage) and one `srb.step` span a call of its
+forward step (inside the rollouts), under the solve's root; the counters
+`srb.lin_knots` and `srb.step_knots` add the SRB steps x B of each call;
+the answers are bit-identical.
 
 On the card (marked `gpu`, skipped without one): the device event pairs
 resolve to positive stream ms, and under a profile with CPU and CUDA
@@ -425,6 +430,114 @@ def test_traced_barrel_roll(br_traced, case):
     bit for bit."""
     BR_CASES[case](br_traced)
 
+
+
+# a small cascade with the SRB tail at dt 0.02 (the `cascade500` cell's):
+# 40 WB steps and 5 resets, then 40 SRB steps
+CASCADE = dict(plan_dur_wb=0.4, plan_dur_srb=0.8, dt_srb=0.02,
+               wb_block=45, n_steps_max=85)
+SRB_STEPS = 40
+SRB_SPANS = {"srb.partials": ("hsddp.lq",),
+             "srb.step": ("hsddp.rollout", "hsddp.line_search")}
+
+
+@pytest.fixture(scope="module")
+def cascade_traced(tmp_path_factory, one_torch_thread):
+    """A B=2 f64 segmented cascade solve (1 AL x 1 DDP) with the tracer
+    off, then on; the SRB segment's `dyn` and `dyn_partials` calls of the
+    traced solve recorded by wrappers."""
+    _fresh()
+    qr = QuadReference(synthetic_bound_reference_urdf(duration=2.0))
+    qr.initialize(CASCADE["plan_dur_wb"] + CASCADE["plan_dur_srb"])
+    cfg = mp.MHPCConfig(**CASCADE)
+    plan_np, pen_np, Xbar0, Ubar0, _ = mp.build_mhpc_plan(qr, cfg)
+    model = wbm.load_model(synthetic_robot.write_synthetic_quadruped_urdf(
+        str(tmp_path_factory.mktemp("robot"))), "cpu", torch.float64)
+    x0 = wb_state_ref_at(qr, 0.0)[None] \
+        + 0.01 * np.random.default_rng(11).normal(size=(B, mp.XS))
+    plan, pen, x0, Xbar0, Ubar0 = from_numpy(
+        (plan_np, pen_np, x0, Xbar0, Ubar0), "cpu", torch.float64)
+    args = (plan, broadcast_batch(pen, B), x0, broadcast_batch(Xbar0, B),
+            broadcast_batch(Ubar0, B))
+    fns = mp.make_mhpc_fns_segmented(cfg, model)
+    srb = fns.fns[1]
+    calls = {"srb.step": [], "srb.partials": []}
+
+    def rec(name, f):
+        return lambda X, U, sd: calls[name].append(X.shape[:-1]) \
+            or f(X, U, sd)
+    fns = fns._replace(fns=(fns.fns[0], srb._replace(
+        dyn=rec("srb.step", srb.dyn),
+        dyn_partials=rec("srb.partials", srb.dyn_partials))))
+    solve = hsddp.make_solver(fns,
+                              SolverOptions(max_AL_iter=1, max_DDP_iter=1),
+                              fused_riccati=True, parallel_line_search=False,
+                              max_resets=16, reg_floor=1e-3)
+    off = solve(*args)
+    out = dict(off=off, off_spans=tracing.spans(),
+               off_counts=tracing.counts())
+    for v in calls.values():
+        v.clear()
+    tracing.enable()
+    try:
+        on = solve(*args)
+    finally:
+        tracing.disable()
+    out.update(on=on, calls=calls, spans=tracing.spans(),
+               counts=tracing.counts())
+    _fresh()
+    return out
+
+
+def _srb_off(t):
+    assert t["off_spans"] == [] and t["off_counts"] == {}
+
+
+def _srb_spans(t):
+    spans = t["spans"]
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["hsddp.solve"]
+    inside = _under(spans, roots[0].id)
+    names = [s.name for s in inside]
+    for name, stages in SRB_SPANS.items():
+        assert names.count(name) == len(t["calls"][name]) > 0, name
+        for s in inside:
+            if s.name == name:
+                assert any(q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
+                           for q in inside if q.name in stages), name
+    assert all(s.device_ms is None for s in inside
+               if s.name in SRB_SPANS)
+
+
+def _srb_knots(t):
+    root = next(s.id for s in t["spans"] if s.parent is None)
+    counts = t["counts"][root]
+    for name, counter in (("srb.step", "srb.step_knots"),
+                          ("srb.partials", "srb.lin_knots")):
+        calls = t["calls"][name]
+        assert all(sh == (B, SRB_STEPS) for sh in calls), name
+        assert counts[counter] == len(calls) * SRB_STEPS * B, counter
+
+
+def _srb_identical(t):
+    for f in ("cost", "Xbar", "Ubar", "K", "success"):
+        assert torch.equal(getattr(t["on"], f), getattr(t["off"], f)), f
+    for a, b in zip(t["on"].info, t["off"].info):
+        assert torch.equal(a, b)
+
+
+SRB_CASES = dict(off=_srb_off, spans=_srb_spans, knots=_srb_knots,
+                 identical=_srb_identical)
+
+
+@pytest.mark.parametrize("case", sorted(SRB_CASES))
+def test_traced_cascade_srb_tail(cascade_traced, case):
+    """Off: nothing recorded.  On: one `srb.partials` span a call of the
+    SRB tail's linearization, inside the LQ stage, and one `srb.step`
+    span a call of its forward step, inside the rollouts, all under the
+    solve's root; `srb.lin_knots` and `srb.step_knots` are the SRB steps
+    x B of each call, summed; the same answers bit for bit."""
+    SRB_CASES[case](cascade_traced)
 
 # ---- on the card --------------------------------------------------------
 
